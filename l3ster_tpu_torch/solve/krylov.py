@@ -1,0 +1,139 @@
+"""Conjugate gradients (PyTorch port of ``l3ster_tpu.solve.krylov``).
+
+A plain Python loop over device tensors.  The loop never waits for the
+device inside an iteration: whether to continue is kept on the device as a
+flag that freezes the iterate once every column has converged, and the host
+reads that flag every ``CHECK_EVERY`` iterations.  The iterate, the
+iteration count and the residual are exactly those of the reference's
+``lax.while_loop`` (at most ``CHECK_EVERY - 1`` frozen iterations run past
+convergence and change nothing).
+"""
+
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass, field
+
+import torch
+
+from .interface import IterSolveResult, IterSolverOpts
+from .precond import Identity
+
+__all__ = ["CHECK_EVERY", "cg_solve", "CG"]
+
+CHECK_EVERY = 10  # iterations between host reads of the convergence flag
+
+
+def _col_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-column inner products of (n, n_rhs) multivectors -> (n_rhs,)."""
+    return (a * b).sum(dim=0)
+
+
+def _residual_scale(b, r0, residual_scaling: str):
+    """Residual normalization (``solve/SolverInterface.hpp:26-37``):
+    "rhs" (norm of b, the default), "initial" (norm of r0), or "none"."""
+    if residual_scaling == "rhs":
+        s = _col_dots(b, b).sqrt()
+    elif residual_scaling == "initial":
+        s = _col_dots(r0, r0).sqrt()
+    elif residual_scaling == "none":
+        return torch.ones(b.shape[-1], dtype=b.dtype, device=b.device)
+    else:
+        raise ValueError(f"unknown residual_scaling {residual_scaling!r}")
+    return torch.where(s > 0, s, torch.ones_like(s))
+
+
+def _safe_div(a, d):
+    ok = d != 0
+    return torch.where(ok, a / torch.where(ok, d, torch.ones_like(d)), torch.zeros_like(a))
+
+
+def cg_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, residual_scaling="rhs"):
+    """Preconditioned conjugate gradients on an SPD operator; multivector RHS.
+
+    Each right-hand-side column iterates with its own step lengths; the loop
+    runs while the largest relative residual exceeds ``tol``.  Returns
+    (x, n_iters, achieved relative residual) with host int and float.
+    """
+    b = b[:, None] if b.ndim == 1 else b
+    x = torch.zeros_like(b) if x0 is None else x0
+    M = precond if precond is not None else (lambda r: r)
+    r = b - operator(x)
+    bnorm = _residual_scale(b, r, residual_scaling)
+    z = M(r)
+    p = z
+    rz = _col_dots(r, z)
+    active = ((_col_dots(r, r).sqrt() / bnorm).max() > tol) & (max_iters > 0)
+    it = torch.zeros((), dtype=torch.int64, device=b.device)
+    done = 0
+    while done < max_iters:
+        for _ in range(min(CHECK_EVERY, max_iters - done)):
+            Ap = operator(p)
+            alpha = _safe_div(rz, _col_dots(p, Ap)) * active
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = M(r)
+            rz_new = _col_dots(r, z)
+            p = torch.where(active, z + _safe_div(rz_new, rz) * p, p)
+            rz = torch.where(active, rz_new, rz)
+            it = it + active
+            active = active & ((_col_dots(r, r).sqrt() / bnorm).max() > tol)
+        done += min(CHECK_EVERY, max_iters - done)
+        if not bool(active):
+            break
+    res = (_col_dots(r, r).sqrt() / bnorm).max()
+    return x, int(it), float(res)
+
+
+def _finish_iter_solve(system, name: str, o: IterSolverOpts, it: int, res: float):
+    """Shared solve epilogue: LOUD cap-hit signal and the result record.
+
+    A solve that stops at ``max_iters`` without meeting ``tol`` always raises
+    a ``RuntimeWarning`` and is recorded on the system for ``describe()``."""
+    converged = res <= o.tol
+    capped = (not converged) and it >= o.max_iters
+    result = IterSolveResult(tol=res, num_iters=it, converged=converged, capped=capped)
+    system._last_solve_result = result
+    if capped:
+        warnings.warn(
+            f"{name}: NOT CONVERGED — hit max_iters={o.max_iters} at relative "
+            f"residual {res:.3e} (tol {o.tol:.1e})",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+    if o.verbosity >= 1:
+        state = "" if converged else ("  [CAPPED]" if capped else "  [not converged]")
+        print(f"{name}: {it} iterations, relative residual {res:.3e}{state}")
+    return result
+
+
+@dataclass
+class CG:
+    """User-facing CG solver (``solve/BelosSolvers.hpp:116``).
+
+    Solves in the lattice layout when the operator and the preconditioner
+    support it, converting the vectors once per solve."""
+
+    opts: IterSolverOpts = field(default_factory=IterSolverOpts)
+    precond: object = field(default_factory=Identity)
+
+    def solve(self, system) -> IterSolveResult:
+        o = self.opts
+        lattice = (
+            getattr(self.precond, "supports_lattice_layout", False)
+            and system.lattice_layout_key() is not None
+        )
+        layout = "lattice" if lattice else "dof"
+        fn, consts = system.operator_parts(layout=layout)
+        M = self.precond.setup(system, layout=layout)
+        b, x0 = system.effective_rhs(), system.solution_vector()
+        if lattice:
+            b, x0 = system.to_lattice_layout(b), system.to_lattice_layout(x0)
+        x, it, res = cg_solve(
+            lambda v: fn(v, *consts), b, x0=x0, precond=M, tol=o.tol,
+            max_iters=o.max_iters, residual_scaling=o.residual_scaling,
+        )
+        if lattice:
+            x = system.from_lattice_layout(x)
+        system.set_solution_vector(x)
+        return _finish_iter_solve(system, "CG", o, it, res)
