@@ -1,27 +1,46 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives ``l3ster_tpu_torch`` (never JAX, never ``l3ster_tpu``) through its
-main path at the bench configuration: matrix-free 3D diffusion, 4 unknowns
-and 7 equations, a p=6 cube of 6^3 hexes (202,612 dofs), value-only
-adiabatic faces on sides 1-4 and Dirichlet T on sides 5-6, float32, the
-operator taken as ``operator_parts(layout="lattice")``, then solved with
-CG + Jacobi.  Phases, each reported on its own line:
+two main paths, matrix-free 3D diffusion (4 unknowns, 7 equations, constant
+coefficients, float32), each solved with CG + Jacobi:
+
+* the lattice path at the bench configuration: a p=6 cube of 6^3 hexes
+  (202,612 dofs), value-only adiabatic faces on sides 1-4 and Dirichlet T on
+  sides 5-6, the operator taken as ``operator_parts(layout="lattice")``;
+* the unstructured path on the cylinder-in-channel mesh at its default size
+  (``make_cylinder_in_channel_3d()``, 17,456 hexes) at p = 4 (4,789,376
+  dofs): Dirichlet T = x from a boundary residual kernel on the inlet (3),
+  the outlet (4) and the cylinder (5), value-only adiabatic walls (1, 2) and
+  caps (6, 7).  AUTO takes the dense apply (``dense_const``, the per-QP
+  kernel between two matmuls) with direct boundary contributions;
+  ``SUM_FACT_PALLAS`` takes the fused sum-factorized kernel.
+
+Phases, each reported on its own line:
 
 1. environment (torch, CUDA, nvcc, the card and its power limit);
-2. build of every kernel from the sources in the checkout;
-3. each kernel against its plain torch version at the main path's shapes,
+2. build of every kernel from the sources in the checkout, one nvcc each,
+   all started together;
+3. each kernel against its plain torch version at its main path's shapes,
    f64 and f32, with CUDA-event times of kernel, plain version and a
    cuBLAS-matmul chain of the same function (``library_ms``);
-4. the main path: the bench system's operator apply (f32) against the same
-   system in f64 on the card, and a small system against the CPU path;
-   apply time and GFLOP/s; the kernels' launch counts are reset before
-   phase 4 and read after phase 5;
-5. CG + Jacobi on the manufactured T = x problem at the bench size.
+4. the lattice main path: the bench system's operator apply (f32) against
+   the same system in f64 on the card, and a small system against the CPU
+   path; apply time and GFLOP/s;
+5. CG + Jacobi on the manufactured T = x problem at the bench size;
+6. the unstructured main path: the cylinder system's apply (f32, AUTO)
+   against the same system in f64 on the card, a small cylinder system
+   against the CPU path, apply time, device-busy time and idle share; the
+   same system under SUM_FACT_PALLAS against the f64 apply, and its time;
+7. CG + Jacobi on the cylinder problem.
 
-The second-to-last lines are the kernels' JSON record and the nvidia-smi
-line; the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
-non-zero before that line.  Run: ``python3 chip_smoke.py`` (one card);
-``--profile`` adds a torch.profiler breakdown of one apply.
+Each kernel's launch count is set to 0 just before its main path (phase 4
+for the z-sweep; phase 6 for the per-QP kernel, after its comparison systems
+ran, and just before the SUM_FACT_PALLAS system for the fused one) and read
+just after it (phases 5 and 7).  The second-to-last lines are
+the kernels' JSON record and the nvidia-smi line; the last line is
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
+line.  Run: ``python3 chip_smoke.py`` (one card); ``--profile`` adds a
+torch.profiler breakdown of one bench apply.
 """
 
 from __future__ import annotations
@@ -44,6 +63,15 @@ F64_KERNEL_TOL = 1e-11  # f64 kernel vs f64 plain
 F32_APPLY_TOL = 1e-4  # f32 bench apply vs the f64 system on the card
 F64_APPLY_TOL = 1e-11  # f64 small system on the card vs the CPU path
 CG_TOL, CG_MAX_ITERS = 1e-6, 20000  # f32 solve at the bench size
+CYL_ORDER = 4  # the order examples/karman_2d.py uses for the full Karman mesh
+# f32 CG + Jacobi on the cylinder, to the bench's relative residual.  The
+# tolerance is on CG's recursively updated residual, which keeps falling in
+# f32 while the true residual |b - A x| / |b| levels off near f32 rounding of
+# the operator (the phase reports both); the graded mesh (cells from ~0.03
+# at the cylinder to ~1.5 in the far field) at p = 4 is far worse conditioned
+# than the bench cube, so the cap allows some 4x the iterations expected
+# (PERF.md) before the run fails
+CYL_CG_TOL, CYL_CG_MAX_ITERS = 1e-6, 20000
 
 
 def _flops_per_apply(order: int, n_elems: int, n_unk: int, n_eq: int, q1: int) -> int:
@@ -204,13 +232,19 @@ def phase_environment() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    from l3ster_tpu_torch.ops import zsweep
+    from l3ster_tpu_torch.ops import _cuda, qp, sumfact_fused, zsweep
 
+    names = ("zsweep", "qp_algebra", "sumfact_fused")
     t0 = time.perf_counter()
-    path = zsweep.build_library()
+    paths = _cuda.build(*names)  # one nvcc per source, all at once
     zsweep._library()
-    ptxas = [ln.strip() for ln in zsweep.build_log.splitlines() if "registers" in ln or "spill" in ln]
-    _say("build", kernel="zsweep", seconds=round(time.perf_counter() - t0, 3), library=path, ptxas=ptxas)
+    _cuda.load("qp_algebra", qp._declare)
+    _cuda.load("sumfact_fused", sumfact_fused._declare)
+    seconds = round(time.perf_counter() - t0, 3)
+    for n in names:
+        log = _cuda.build_logs.get(n, "")
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        _say("build", kernel=n, seconds=seconds, library=paths[n], ptxas=ptxas)
 
 
 def phase_kernels(lp) -> dict:
@@ -399,11 +433,328 @@ def phase_solve(lp, state: dict) -> None:
         raise SystemExit("chip_smoke: CG + Jacobi did not reach its tolerance")
 
 
+# ------------------------------------------------------------ unstructured path
+
+
+def _t_equals_x(inp, out):
+    out[0] = inp.point.x
+
+
+def _cylinder_mesh(lp, order: int, small: bool):
+    """The default cylinder-in-channel mesh, or the small one of the tests."""
+    kw = {}
+    if small:
+        kw = dict(
+            distz=np.linspace(-1, 1, 3), left_offset=4.0, right_offset=6.0, bottom_offset=3.0,
+            top_offset=3.0, n_circumf=16, n_radial=4, n_left=3, n_right=6, n_bottom=2, n_top=2,
+        )
+    return lp.generate_mesh(lp.make_cylinder_in_channel_3d(**kw), order=order)
+
+
+def _build_cylinder(lp, mesh, strategy, dtype, device):
+    problem = lp.ProblemDefinition(4, [0])
+    bcs = lp.BCDefinition(problem)
+    bcs.define_dirichlet([3, 4, 5], [0])
+    params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
+    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
+    kd = lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4))
+    kn = lp.wrap_boundary_equation_kernel(_adiabatic_3d, lp.KernelParams(3, 1, 4))
+    kdir = lp.wrap_boundary_residual_kernel(_t_equals_x, lp.KernelParams(3, 1))
+    system.set_dirichlet_bc_values(kdir, [3, 4, 5], [0])
+    system.begin_assembly()
+    opts = lp.AssemblyOptions(eval_strategy=getattr(lp.LocalEvalStrategy, strategy))
+    system.assemble_problem(kd, [0], options=opts)
+    system.assemble_problem(kn, [1, 2, 6, 7])
+    system.end_assembly()
+    return system
+
+
+def _library_qp(A, G, Ji_t, w):
+    """The per-QP chain on the reference's (d1*c, EQ) layout: J^-T and J^-1 as
+    broadcast multiply-adds over the (dim, dim, EQ) planes, A and A^T as cuBLAS
+    matmuls.  The yardstick for ``library_ms``; the port never calls it."""
+    import torch
+
+    E, c, d1, Q = G.shape
+    EQ, n_eq = E * Q, A.shape[1]
+    g = G.permute(2, 1, 0, 3).reshape(d1, c, EQ)
+    J = Ji_t[:, :, None]  # (j, i, 1, EQ)
+    gp = torch.cat([g[:1], (J * g[1:, None]).sum(0)])  # sum_j Ji[j, i] g[j]
+    M = torch.as_tensor(A, dtype=G.dtype, device=G.device).permute(1, 0, 2).reshape(n_eq, d1 * c)
+    r = torch.matmul(M, gp.reshape(d1 * c, EQ)) * w
+    t = torch.matmul(M.T, r).reshape(d1, c, EQ)
+    T = torch.cat([t[:1], (J * t[None, 1:]).sum(1)])  # sum_i Ji[j, i] t[i]
+    return T.reshape(d1, c, E, Q).permute(2, 1, 0, 3)
+
+
+def _library_sumfact(A, ji, w, Ball, x):
+    """The fused apply's function as the dense chain: cuBLAS matmuls with the
+    full basis matrix around :func:`_library_qp`; the port never calls it."""
+    import torch
+
+    E, n, c = x.shape
+    dim = ji.shape[-1]
+    G = torch.matmul(x.transpose(1, 2).reshape(E * c, n), Ball.T).reshape(E, c, dim + 1, -1)
+    Ji_t = ji.reshape(-1, dim, dim).permute(1, 2, 0).contiguous()  # planes, as the dense path packs them
+    T = _library_qp(A, G, Ji_t, w.reshape(-1))
+    return torch.matmul(T.reshape(E * c, -1), Ball).reshape(E, c, n).transpose(1, 2)
+
+
+def _qp_flops(EQ: int, dim: int, c: int, nnz: int, n_eq: int) -> int:
+    """J^-T and J^-1 (dim^2 c FMAs each), r = A g and t = A^T r (nnz FMAs each), w r."""
+    return EQ * (4 * dim * dim * c + 4 * nnz + n_eq)
+
+
+def _sumfact_flops(E: int, n1: int, q1: int, dim: int, c: int, nnz: int, n_eq: int) -> int:
+    """FMAs of the 1D sweeps over their table entries (both directions), plus the per-QP chain."""
+    if dim == 3:
+        fwd = 2 * n1 * n1 * q1 * c * n1 + 3 * n1 * q1 * q1 * c * n1 + 4 * q1**3 * c * n1
+        bwd = 4 * n1 * q1 * q1 * c * q1 + 3 * n1 * n1 * q1 * c * q1 + 2 * n1**3 * c * q1
+    else:
+        fwd = 2 * n1 * q1 * c * n1 + 3 * q1 * q1 * c * n1
+        bwd = 3 * n1 * q1 * c * q1 + 2 * n1 * n1 * c * q1
+    return E * 2 * (fwd + bwd) + _qp_flops(E * q1**dim, dim, c, nnz, n_eq)
+
+
+def _bound(nbytes: int, flops: int) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _errs(got, ref) -> tuple[float, float]:
+    """(max abs error, max abs error / max |ref|)."""
+    scale = float(ref.abs().max())
+    err = float((got.double() - ref).abs().max())
+    return err, err / scale
+
+
+def phase_kernels_unstructured(lp) -> list:
+    """The per-QP kernel and the fused sum-factorized kernel against their
+    plain versions at the cylinder's p = 4 shapes (f64 and f32), plus a small
+    dim-2 case of each; returns their JSON records."""
+    import torch
+
+    from l3ster_tpu_torch.algsys.local import domain_tables
+    from l3ster_tpu_torch.algsys.system import _constant_kernel_operators
+    from l3ster_tpu_torch.ops.dense_eval import dense_basis_matrix
+    from l3ster_tpu_torch.ops.qp import qp_algebra_const, qp_algebra_const_plain
+    from l3ster_tpu_torch.ops.sumfact_fused import sumfact_const_apply, sumfact_const_apply_plain
+
+    kd = lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4))
+    A3 = _constant_kernel_operators(kd, 0.0)
+    order, E, c = CYL_ORDER, 17456, 4  # the p = 4 cylinder: 17,456 hexes, 4 unknowns
+    q_order = lp.AssemblyOptions().quadrature_order(order)
+    n1, q1 = order + 1, q_order // 2 + 1
+    records = []
+    for dim in (3, 2):
+        # dim 3: the main path's shapes; dim 2: a small case with 3 unknowns
+        # and 4 equations, the shape of 2D diffusion
+        rng = np.random.default_rng(dim)
+        if dim == 3:
+            A, Ed, cd = A3, E, c
+        else:
+            A = rng.normal(size=(3, 4, 3)) * (rng.uniform(size=(3, 4, 3)) > 0.4)
+            Ed, cd = 500, 3
+        Q = q1**dim
+        host = {
+            "G": rng.normal(size=(Ed, cd, dim + 1, Q)),
+            "ji": rng.normal(size=(Ed, Q, dim, dim)) * 0.1 + np.eye(dim),
+            "w": rng.uniform(0.5, 1.0, (Ed, Q)),
+            "x": rng.normal(size=(Ed, n1**dim, cd)),
+        }
+        nnz, n_eq = int((A != 0).sum()), A.shape[1]
+        for name in ("qp_algebra", "sumfact_fused"):
+            out = {}
+            for dt in (torch.float64, torch.float32):
+                d = {k: torch.as_tensor(v, dtype=dt, device="cuda") for k, v in host.items()}
+                Ji_t = d["ji"].reshape(-1, dim, dim).permute(1, 2, 0).contiguous()
+                if name == "qp_algebra":
+                    args = (A, d["G"], Ji_t, d["w"].reshape(-1))
+                    kern = lambda a=args: qp_algebra_const(*a)  # noqa: E731
+                    plain = lambda a=args: qp_algebra_const_plain(*a)  # noqa: E731
+                    lib = lambda a=args: _library_qp(*a)  # noqa: E731
+                else:
+                    args = (A, d["ji"], d["w"], order, q_order, dim, d["x"])
+                    Ball = torch.as_tensor(
+                        dense_basis_matrix(domain_tables(lp.ElementType.HEX if dim == 3 else lp.ElementType.QUAD, order, q_order)),
+                        dtype=dt, device="cuda",
+                    )
+                    kern = lambda a=args: sumfact_const_apply(*a)  # noqa: E731
+                    plain = lambda a=args: sumfact_const_apply_plain(*a)  # noqa: E731
+                    lib = lambda d=d, B=Ball: _library_sumfact(A, d["ji"], d["w"], B, d["x"])  # noqa: E731
+                out[dt] = (kern(), kern, plain, lib, args)
+            ref = out[torch.float64][2]()
+            torch.cuda.synchronize()
+            _, err64 = _errs(out[torch.float64][0], ref)
+            abs32, err32 = _errs(out[torch.float32][0], ref)
+            _, kern32, plain32, lib32, args32 = out[torch.float32]
+            _, lib_err = _errs(lib32(), ref)
+            del ref, out
+            ok = err64 < F64_KERNEL_TOL and err32 < F32_KERNEL_TOL
+            ms, plain_ms, library_ms = _cuda_ms(kern32), _cuda_ms(plain32), _cuda_ms(lib32)
+            if name == "qp_algebra":
+                G, Ji_t, w = args32[1:]
+                nbytes = 4 * (2 * G.numel() + Ji_t.numel() + w.numel())
+                flops = _qp_flops(w.numel(), dim, cd, nnz, n_eq)
+                shape = list(G.shape)
+                replaces, src = "l3ster_tpu/ops/pallas_qp.py:94", "l3ster_tpu_torch/csrc/qp_algebra.cu"
+            else:
+                ji, w, x = args32[1], args32[2], args32[6]
+                nbytes = 4 * (2 * x.numel() + ji.numel() + w.numel() + 2 * q1 * n1)
+                flops = _sumfact_flops(Ed, n1, q1, dim, cd, nnz, n_eq)
+                shape = [Ed, n1**dim, cd, Q]
+                replaces, src = "l3ster_tpu/ops/pallas_sumfact.py:195", "l3ster_tpu_torch/csrc/sumfact_fused.cu"
+            bound_ms, bound_by = _bound(nbytes, flops)
+            _say(
+                "kernel_vs_plain", kernel=name, dim=dim, shape=shape, f64_rel_err=err64,
+                f64_tol=F64_KERNEL_TOL, f32_rel_err=err32, f32_abs_err=abs32, f32_tol=F32_KERNEL_TOL,
+                library_rel_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by, ok=ok,
+            )
+            if not ok:
+                raise SystemExit(f"chip_smoke: {name} kernel disagrees with its plain version (dim {dim})")
+            if dim == 3:
+                records.append(dict(
+                    name=name, route="cuda", source=src, replaces=replaces, launches=None,
+                    max_abs_err=abs32, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=library_ms,
+                ))
+            torch.cuda.empty_cache()
+    return records
+
+
+def _profile_apply(fn, x, n: int = 10) -> tuple[float, dict]:
+    """(device-busy ms per apply, the 8 costliest device kernels' ms per apply):
+    the CUDA kernels' time summed by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    return busy, {e.key[:60]: e.self_device_time_total / 1e3 / n for e in top}
+
+
+def phase_unstructured_main_path(lp) -> dict:
+    import torch
+
+    from l3ster_tpu_torch.ops import qp, sumfact_fused
+
+    t0 = time.perf_counter()
+    mesh = _cylinder_mesh(lp, CYL_ORDER, small=False)
+    mesh_s = time.perf_counter() - t0
+
+    # independent checks, made before the main path's counts start: a small
+    # f64 cylinder system on the card against the CPU path, and the f64
+    # reference of the full-size apply
+    small = _cylinder_mesh(lp, 2, small=True)
+    sg = _build_cylinder(lp, small, "AUTO", torch.float64, "cuda")
+    sc = _build_cylinder(lp, small, "AUTO", torch.float64, "cpu")
+    xs = torch.as_tensor(np.random.default_rng(3).normal(size=(sc.n_dofs, 1)))
+    ys = sc.operator()(xs)
+    small_err = float((sg.operator()(xs.cuda()).cpu() - ys).abs().max() / ys.abs().max())
+    del sg, sc
+    sys64 = _build_cylinder(lp, mesh, "AUTO", torch.float64, "cuda")
+    x64 = torch.as_tensor(np.random.default_rng(4).normal(size=(sys64.n_dofs, 1)), device="cuda")
+    y64 = sys64.operator()(x64)
+    del sys64
+    torch.cuda.empty_cache()
+
+    qp.launch_count = 0  # the unstructured main path (AUTO) starts here
+    t0 = time.perf_counter()
+    system = _build_cylinder(lp, mesh, "AUTO", torch.float32, "cuda")
+    kinds = [d[0] for _, d in system._operators()[1]]
+    fn = system.operator()
+    x32 = x64.float()
+    y32 = fn(x32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    qp_launches_first = qp.launch_count
+    apply_err = float((y32.double() - y64).abs().max() / y64.abs().max())
+    finite = bool(torch.isfinite(y32).all())
+    apply_ms = _cuda_ms(lambda: fn(x32))
+    busy_ms, top = _profile_apply(fn, x32)
+    ok = (
+        kinds == ["dense_const"] + ["direct"] * 4 and finite and apply_err < F32_APPLY_TOL
+        and small_err < F64_APPLY_TOL and system.n_dofs == 4789376 and qp_launches_first > 0
+    )
+    _say(
+        "unstructured_apply", mesh="make_cylinder_in_channel_3d()", order=CYL_ORDER,
+        n_elements=int(mesh.domains[0][0].n_elements), n_dofs=system.n_dofs, kinds=kinds,
+        dtype="float32", mesh_s=mesh_s, setup_s=setup_s, rel_err_vs_f64_on_card=apply_err,
+        tol=F32_APPLY_TOL, small_f64_rel_err_vs_cpu=small_err, small_tol=F64_APPLY_TOL,
+        finite=finite, apply_ms=apply_ms, device_busy_ms=busy_ms,
+        device_idle_share=1.0 - busy_ms / apply_ms, top_device_ms_per_apply=top,
+        qp_launches_first_apply=qp_launches_first, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: unstructured apply failed its checks")
+
+    sumfact_fused.launch_count = 0  # the SUM_FACT_PALLAS path starts here
+    t0 = time.perf_counter()
+    spal = _build_cylinder(lp, mesh, "SUM_FACT_PALLAS", torch.float32, "cuda")
+    pkinds = [d[0] for _, d in spal._operators()[1]]
+    fp = spal.operator()
+    yp = fp(x32)
+    torch.cuda.synchronize()
+    psetup_s = time.perf_counter() - t0
+    perr = float((yp.double() - y64).abs().max() / y64.abs().max())
+    pms = _cuda_ms(lambda: fp(x32))
+    pbusy_ms, ptop = _profile_apply(fp, x32)
+    ok = pkinds == ["pallas"] + ["direct"] * 4 and bool(torch.isfinite(yp).all()) and perr < F32_APPLY_TOL
+    _say(
+        "unstructured_apply_sum_fact_pallas", kinds=pkinds, setup_s=psetup_s,
+        rel_err_vs_f64_auto_on_card=perr, tol=F32_APPLY_TOL, apply_ms=pms,
+        auto_apply_ms=apply_ms, device_busy_ms=pbusy_ms, device_idle_share=1.0 - pbusy_ms / pms,
+        top_device_ms_per_apply=ptop, sumfact_launches=sumfact_fused.launch_count, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: SUM_FACT_PALLAS apply failed its checks")
+    del spal, fp, yp, y64
+    torch.cuda.empty_cache()
+    return {"system": system, "mesh": mesh}
+
+
+def phase_unstructured_solve(lp, state: dict) -> None:
+    import torch
+
+    from l3ster_tpu_torch.ops import qp
+
+    system, mesh = state["system"], state["mesh"]
+    before = qp.launch_count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opts = lp.IterSolverOpts(tol=CYL_CG_TOL, max_iters=CYL_CG_MAX_ITERS)
+    r = system.solve(lp.CG(opts, precond=lp.Jacobi()))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = qp.launch_count - before
+    b = system.effective_rhs()
+    true_res = float((b - system.operator()(system.x)).norm() / b.norm())
+    X = system.x[:, 0].reshape(-1, 4).double().cpu().numpy()
+    err_T = float(np.abs(X[:, 0] - mesh.node_coords[:, 0]).max())
+    err_q = float(max(np.abs(X[:, 1] - 1.0).max(), np.abs(X[:, 2:]).max()))
+    _say(
+        "unstructured_solve", solver="CG+Jacobi", dtype="float32", n_dofs=system.n_dofs,
+        tol=CYL_CG_TOL, max_iters=CYL_CG_MAX_ITERS, iterations=r.num_iters,
+        achieved_rel_residual=r.tol, true_rel_residual=true_res, converged=r.converged,
+        solve_s=solve_s,
+        ms_per_iteration=solve_s * 1e3 / max(r.num_iters, 1),
+        max_nodal_err_T_minus_x=err_T, max_nodal_err_q_minus_1_0_0=err_q, qp_launches=launches,
+    )
+    if not r.converged:
+        raise SystemExit("chip_smoke: cylinder CG + Jacobi did not reach its tolerance")
+
+
 def main() -> int:
     import torch
 
     import l3ster_tpu_torch as lp
-    from l3ster_tpu_torch.ops import zsweep
+    from l3ster_tpu_torch.ops import qp, sumfact_fused, zsweep
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 matmuls (the default, stated)
     torch.backends.cudnn.allow_tf32 = False
@@ -412,12 +763,20 @@ def main() -> int:
         raise SystemExit("chip_smoke: the port imported JAX or the JAX package")
     phase_build()
     record = phase_kernels(lp)
+    records = phase_kernels_unstructured(lp)
     state = phase_main_path(lp, profile="--profile" in sys.argv)
     phase_solve(lp, state)
-    record["launches"] = zsweep.launch_count  # main path: phases 4 and 5
-    if record["launches"] <= 0:
-        raise SystemExit("chip_smoke: the main path never launched the z-sweep kernel")
-    print(json.dumps({"kernels": [record]}))
+    record["launches"] = zsweep.launch_count  # lattice main path: phases 4 and 5
+    del state
+    torch.cuda.empty_cache()
+    state = phase_unstructured_main_path(lp)
+    phase_unstructured_solve(lp, state)
+    records[0]["launches"] = qp.launch_count  # unstructured main path: phases 6 and 7
+    records[1]["launches"] = sumfact_fused.launch_count
+    for rec in [record] + records:
+        if rec["launches"] <= 0:
+            raise SystemExit(f"chip_smoke: the main path never launched the {rec['name']} kernel")
+    print(json.dumps({"kernels": [record] + records}))
     print(smi)
     print(json.dumps(
         {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}

@@ -28,7 +28,15 @@ from .common.problem import AlgebraicSystemParams, AssemblyOptions, BCDefinition
 from .interop import from_lattice_layout, mesh_from_numpy, to_lattice_layout
 from .mesh.convert_order import convert_mesh_to_order
 from .mesh.core import ElementBlock, Mesh
-from .mesh.generators import CubeMeshIds, make_cube_mesh
+from .mesh.generators import (
+    CubeMeshIds,
+    CylinderInChannel2DIds,
+    extrude_to_3d,
+    graded_distribution,
+    make_cube_mesh,
+    make_cylinder_in_channel_2d,
+    make_cylinder_in_channel_3d,
+)
 from .mesh.traits import ElementType
 from .solve.interface import IterSolveResult, IterSolverOpts
 from .solve.krylov import CG
@@ -40,7 +48,8 @@ __version__ = "0.1.0"
 def generate_mesh(mesh: Mesh, order: int = 1) -> Mesh:
     """Promote a generated order-1 mesh to the requested element order.
     Tensor-grid meshes are relabeled to lattice node order, so the operator
-    runs as banded sweeps on the lattice tensor (``ops/lattice_sumfact.py``)."""
+    runs as banded sweeps on the lattice tensor (``ops/lattice_sumfact.py``);
+    other meshes keep their numbering and take the gather-based paths."""
     from .mesh.convert_order import lattice_renumber
 
     return lattice_renumber(convert_mesh_to_order(mesh, order))

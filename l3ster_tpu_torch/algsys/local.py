@@ -6,10 +6,12 @@ The least-squares normal equations for the first-order system
     K_e = sum_q w_q |J_q|  M_q^T M_q,     F_e = sum_q w_q |J_q| M_q^T f_q,
 
 where ``M_q[:, (n,u)] = sum_d A_d(x_q)[:, u] * B_d[q, n]`` with ``B_0`` the
-basis values and ``B_d`` the physical basis derivatives.  This slice ports
+basis values and ``B_d`` the physical basis derivatives.  This module ports
 what the matrix-free system needs: geometry, the batched kernel evaluation,
-and the right-hand side and operator diagonal, both direct and
-sum-factorized.  Everything is batched over elements (leading axis E).
+the right-hand side and operator diagonal (direct and sum-factorized), and
+the local applies of the gather-based paths (direct, dense-basis and
+sum-factorized, constant A).  Everything is batched over elements (leading
+axis E).
 
 Local DOF ordering is node-major: local dof = node * n_unknowns + unknown.
 """
@@ -40,6 +42,10 @@ __all__ = [
     "ElementGeometry",
     "element_geometry",
     "eval_equation_kernel",
+    "eval_residual_kernel",
+    "local_apply_direct",
+    "local_apply_dense_const",
+    "local_apply_sumfact_const",
     "local_rhs",
     "local_diagonal",
     "local_rhs_sumfact",
@@ -132,12 +138,9 @@ def element_geometry(
     return ElementGeometry(xyz=xyz, phys_ders=physD, weights=weights, normals=normals, jac_inv=Jinv)
 
 
-def eval_equation_kernel(kernel, geom: ElementGeometry, time=0.0):
-    """Evaluate a wrapped equation kernel at all (element, qp) of a field-free
-    contribution, mapped over the E*Q points with ``torch.func.vmap``.
-
-    Returns A (E, Q, dim+1, n_eq, n_unk) and f (E, Q, n_eq, n_rhs).
-    """
+def _eval_points(kernel, geom: ElementGeometry, time):
+    """Map ``kernel.evaluate`` over the E*Q points of a field-free contribution
+    with ``torch.func.vmap``; outputs keep their per-point shapes behind E*Q."""
     p = kernel.params
     E, Q = geom.weights.shape
     dtype, device = geom.weights.dtype, geom.weights.device
@@ -153,14 +156,29 @@ def eval_equation_kernel(kernel, geom: ElementGeometry, time=0.0):
         def one(v, d, x, n):
             return kernel.evaluate(BoundaryInput(v, d, SpaceTimePoint(x, t), n), dtype, device)
 
-        A, f = torch.func.vmap(one)(vals, ders, xyz, nrm)
-    else:
+        return torch.func.vmap(one)(vals, ders, xyz, nrm)
 
-        def one(v, d, x):
-            return kernel.evaluate(DomainInput(v, d, SpaceTimePoint(x, t)), dtype, device)
+    def one(v, d, x):
+        return kernel.evaluate(DomainInput(v, d, SpaceTimePoint(x, t)), dtype, device)
 
-        A, f = torch.func.vmap(one)(vals, ders, xyz)
+    return torch.func.vmap(one)(vals, ders, xyz)
+
+
+def eval_equation_kernel(kernel, geom: ElementGeometry, time=0.0):
+    """Evaluate a wrapped equation kernel at all (element, qp) of a field-free
+    contribution.  Returns A (E, Q, dim+1, n_eq, n_unk) and f (E, Q, n_eq, n_rhs).
+    """
+    E, Q = geom.weights.shape
+    A, f = _eval_points(kernel, geom, time)
     return A.reshape((E, Q) + A.shape[1:]), f.reshape((E, Q) + f.shape[1:])
+
+
+def eval_residual_kernel(kernel, geom: ElementGeometry, time=0.0):
+    """Evaluate a wrapped residual kernel at all (element, point) of a field-free
+    contribution -> (E, Q, n_eq, n_rhs)."""
+    E, Q = geom.weights.shape
+    f = _eval_points(kernel, geom, time)
+    return f.reshape((E, Q) + f.shape[1:])
 
 
 def _basis_stack(tables: DomainTables, geom: ElementGeometry) -> torch.Tensor:
@@ -170,6 +188,20 @@ def _basis_stack(tables: DomainTables, geom: ElementGeometry) -> torch.Tensor:
         E, tables.n_qp, 1, tables.values.shape[1]
     )
     return torch.cat([N, geom.phys_ders], dim=2)
+
+
+def local_apply_direct(
+    A: torch.Tensor, B: torch.Tensor, weights: torch.Tensor, x_loc: torch.Tensor
+) -> torch.Tensor:
+    """Matrix-free local operator apply: y_e = sum_q w_q M_q^T (M_q x_e).
+
+    A (E,Q,dim+1,n_eq,n_unk), B (E,Q,dim+1,n_nodes), weights (E,Q),
+    x_loc (E, n_nodes, n_unk) -> y (E, n_nodes, n_unk).  Never materializes M.
+    """
+    g = torch.einsum("eqdn,enu->eqdu", B, x_loc)
+    r = torch.einsum("eqdiu,eqdu->eqi", A, g)
+    t = torch.einsum("eqdiu,eqi->eqdu", A, r * weights[:, :, None])
+    return torch.einsum("eqdn,eqdu->enu", B, t)
 
 
 def local_rhs(A: torch.Tensor, B: torch.Tensor, weights: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
@@ -229,3 +261,74 @@ def local_diagonal_sumfact(
             s = Gw[:, :, j, k, :] * (1.0 if j == k else 2.0)
             out = out + sumfact_transpose_general(s, tabs, dim)
     return out
+
+
+def _qp_algebra_const(A: np.ndarray, Ji_t, w_t, vals_l, rd, dim: int, c: int, dtype):
+    """Constant-coefficient per-QP algebra on (E*Q,) vectors: A's scalars are
+    Python floats and structural zeros are skipped entirely.
+
+    vals_l[u], rd[j][u] -> (EQ,) reference-space values/derivatives; Ji_t
+    (dim, dim, EQ); w_t (EQ,).  Returns (t0 [u], tr [j][u]), the
+    reference-space transpose integrands.  The plain version of the per-QP
+    kernel (``ops/qp.py``).
+    """
+    d1, n_eq = A.shape[0], A.shape[1]
+    EQ = w_t.shape[0]
+    pders = [
+        [sum(Ji_t[j, i] * rd[j][u] for j in range(dim)) for u in range(c)] for i in range(dim)
+    ]
+    g = [vals_l] + pders
+
+    def zeros():
+        return torch.zeros((EQ,), dtype=dtype, device=w_t.device)
+
+    def dotA(i):
+        terms = [float(A[d, i, u]) * g[d][u] for d in range(d1) for u in range(c) if A[d, i, u] != 0.0]
+        return sum(terms) if terms else zeros()
+
+    rw = [dotA(i) * w_t for i in range(n_eq)]
+
+    def dotAT(d, u):
+        terms = [float(A[d, i, u]) * rw[i] for i in range(n_eq) if A[d, i, u] != 0.0]
+        return sum(terms) if terms else zeros()
+
+    t = [[dotAT(d, u) for u in range(c)] for d in range(d1)]
+    tr = [[sum(Ji_t[j, i] * t[1 + i][u] for i in range(dim)) for u in range(c)] for j in range(dim)]
+    return t[0], tr
+
+
+def local_apply_dense_const(
+    A_const: np.ndarray, Ji_t: torch.Tensor, w_t: torch.Tensor, Ball: torch.Tensor, dim: int,
+    x_loc: torch.Tensor,
+) -> torch.Tensor:
+    """Dense-basis local apply for constant-coefficient kernels, any element.
+
+    Two basis matmuls (``ops/dense_eval.py``) around the per-QP kernel
+    (``ops/qp.py``), which reads and writes the matmuls' (E, c, dim+1, Q)
+    layout.  x_loc (E, n_nodes, c) -> y (E, n_nodes, c).
+    """
+    from ..ops.dense_eval import dense_interpolate_channels, dense_transpose_channels
+    from ..ops.qp import qp_algebra_const
+
+    G = dense_interpolate_channels(x_loc, Ball, dim)
+    return dense_transpose_channels(qp_algebra_const(A_const, G, Ji_t, w_t), Ball)
+
+
+def local_apply_sumfact_const(
+    A_const: np.ndarray, Ji_t: torch.Tensor, w_t: torch.Tensor, E: int, order: int, q_order: int,
+    dim: int, x_loc: torch.Tensor,
+) -> torch.Tensor:
+    """Sum-factorized local apply for constant-coefficient kernels (Quad/Hex):
+    sweeps to the QPs, the per-QP chain with A's scalars, transpose sweeps.
+    The plain version of the fused kernel (``ops/sumfact_fused.py``)."""
+    from ..ops.sumfact import sumfact_interpolate, sumfact_tables_1d, sumfact_transpose_channels
+
+    N1, D1, _ = sumfact_tables_1d(order, q_order)
+    EQ = w_t.shape[0]
+    c = x_loc.shape[-1]
+    vals, rders = sumfact_interpolate(x_loc, N1, D1, dim)
+    vals_l = [vals.reshape(EQ, c)[:, u] for u in range(c)]
+    rd = [[rders[:, j].reshape(EQ, c)[:, u] for u in range(c)] for j in range(dim)]
+    A = np.asarray(A_const, dtype=np.float64)
+    t0, tr = _qp_algebra_const(A, Ji_t, w_t, vals_l, rd, dim, c, x_loc.dtype)
+    return sumfact_transpose_channels(t0, tr, N1, D1, dim, E)

@@ -1,11 +1,23 @@
 """Matrix-free algebraic system (PyTorch port of ``l3ster_tpu.algsys.system``).
 
-This slice ports the lattice family of :class:`MatrixFreeSystem`: a
-constant-coefficient 3D volume kernel on a structured lattice block runs as
-global banded sweeps around the fused z-sweep (``ops/lattice_sumfact.py``),
-and value-only boundary kernels on full lattice sides run as banded face
-sweeps.  Every other operator kind raises ``NotImplementedError`` and names
-its ``ROADMAP.md`` entry.
+Two families of :class:`MatrixFreeSystem` operator contributions are ported:
+
+* the lattice family: a constant-coefficient 3D volume kernel on a
+  structured lattice block runs as global banded sweeps around the fused
+  z-sweep (``ops/lattice_sumfact.py``), and value-only boundary kernels on
+  full lattice sides run as banded face sweeps;
+* the gather family, for any mesh: element values are gathered through the
+  dof map, a local apply runs per element batch, and ``index_add_`` scatters
+  the result.  Constant-coefficient volume kernels take the dense-basis
+  apply (``dense_const``: two matmuls around the per-QP kernel), the
+  sum-factorized one (``sumfact_const``) or the fused sum-factorized kernel
+  (``pallas``); boundary kernels and order-1 volumes take the direct apply.
+
+The local evaluation strategy follows the reference's ladder, on every
+device: AUTO takes the lattice kinds when the volume block is a lattice,
+else the dense apply at order >= 2.  Variable-coefficient volume kernels on
+the lattice, dense and sum-factorized paths raise ``NotImplementedError``
+and name their ``ROADMAP.md`` entry.
 
 Strong Dirichlet conditions are imposed **by masking, outside the operator**
 (SPD-preserving): ``y = free * A(free * x) + dir * x`` and
@@ -31,6 +43,7 @@ from ..interop import from_lattice_layout, to_lattice_layout
 from ..mesh.core import Mesh
 from .local import (
     _basis_stack,
+    _const,
     domain_tables,
     element_geometry,
     eval_equation_kernel,
@@ -177,7 +190,7 @@ def _resolve_device(device) -> torch.device:
 
 
 class MatrixFreeSystem:
-    """Operator-only system (``algsys/MatrixFreeSystem.hpp``), lattice family."""
+    """Operator-only system (``algsys/MatrixFreeSystem.hpp``): lattice and gather families."""
 
     def __init__(
         self,
@@ -328,19 +341,48 @@ class MatrixFreeSystem:
 
     @staticmethod
     def _use_sumfact(c: _Contribution) -> bool:
-        """Sum-factorized rhs/diagonal for volume Quad/Hex contributions at p >= 2
-        (the reference's AUTO / LATTICE_SF choice); boundaries are direct."""
+        """Sum-factorized rhs/diagonal (and apply, on the sum-factorized kinds) for
+        volume Quad/Hex contributions: forced by SUM_FACT / SUM_FACT_PALLAS, else
+        at p >= 2 unless DIRECT is asked for; boundaries are direct."""
         from ..ops.sumfact import supports_sumfact
 
-        if c.tables.side is not None or c.options.eval_strategy == LocalEvalStrategy.DIRECT:
+        strat = c.options.eval_strategy
+        if c.tables.side is not None or strat == LocalEvalStrategy.DIRECT:
             return False
+        if strat in (LocalEvalStrategy.SUM_FACT, LocalEvalStrategy.SUM_FACT_PALLAS):
+            if not supports_sumfact(c.tables.element_type):
+                raise ValueError("sum factorization requires tensor-product Quad/Hex elements")
+            return True
         return supports_sumfact(c.tables.element_type) and c.tables.order >= 2
+
+    def _use_lattice_sf(self, c: _Contribution) -> bool:
+        """Global banded sweeps: LATTICE_SF (which requires a lattice block), or
+        AUTO when the volume block is a lattice."""
+        strat = c.options.eval_strategy
+        if c.tables.side is not None or strat not in (LocalEvalStrategy.AUTO, LocalEvalStrategy.LATTICE_SF):
+            return False
+        plan = self._lattice_plan(c)
+        if plan is None and strat == LocalEvalStrategy.LATTICE_SF:
+            raise ValueError("LATTICE_SF requires a structured-lattice mesh block")
+        return plan is not None
+
+    @staticmethod
+    def _use_dense(c: _Contribution) -> bool:
+        """Dense basis-matrix apply: DENSE_MXU, or AUTO at p >= 2 (the
+        reference's AUTO on its accelerator, taken here on every device)."""
+        strat = c.options.eval_strategy
+        if c.tables.side is not None:
+            return False
+        return strat == LocalEvalStrategy.DENSE_MXU or (
+            strat == LocalEvalStrategy.AUTO and c.tables.order >= 2
+        )
 
     # -- Dirichlet values (``AssembledSystem.hpp:158-286`` analog) ------------
 
-    def set_dirichlet_bc_values(self, values, boundaries=None, dof_inds=None):
-        """Set Dirichlet values from per-dof constants on given boundaries, or
-        directly from an array matching the Dirichlet dof list."""
+    def set_dirichlet_bc_values(self, values, boundaries=None, dof_inds=None, time=0.0):
+        """Set Dirichlet values from a boundary residual kernel (averaged at
+        shared nodes), from per-dof constants on given boundaries, or directly
+        from an array matching the Dirichlet dof list."""
         if boundaries is None:  # raw array aligned with the Dirichlet dof list
             vals = torch.as_tensor(values, dtype=self.dtype, device=self.device).reshape(-1, self.n_rhs)
             if vals.shape[0] != len(self.dirichlet_dofs):
@@ -349,9 +391,8 @@ class MatrixFreeSystem:
             self._effective_rhs = None
             return
         if callable(getattr(values, "evaluate", None)):
-            raise NotImplementedError(
-                "Dirichlet values from a kernel need values_at_nodes (ROADMAP.md queue A8)"
-            )
+            self._set_dirichlet_from_kernel(values, boundaries, dof_inds, time)
+            return
         consts = np.asarray(values, dtype=np.float64).reshape(-1)
         dof_inds = tuple(dof_inds) if dof_inds is not None else tuple(range(len(consts)))
         if len(consts) != len(dof_inds):
@@ -377,6 +418,31 @@ class MatrixFreeSystem:
                 )
             vals[torch.as_tensor(pos, device=self.device)] = float(val)
         self.dirichlet_values = vals
+        self._effective_rhs = None
+
+    def _set_dirichlet_from_kernel(self, kernel, boundaries, dof_inds, time) -> None:
+        """Kernel equation i gives the value of dof ``dof_inds[i]`` at each node
+        of the boundaries; nodes whose dof is not Dirichlet are skipped."""
+        from .values_at_nodes import compute_boundary_values_at_nodes
+
+        n_eq = kernel.params.n_equations
+        dof_inds = tuple(dof_inds) if dof_inds is not None else tuple(range(n_eq))
+        vals, mask = compute_boundary_values_at_nodes(
+            kernel, self.mesh, boundaries, time, self.dtype, self.device
+        )  # (n_nodes, n_eq, n_rhs)
+        nodes = np.nonzero(mask.cpu().numpy())[0]
+        out = self.dirichlet_values.clone()
+        for i, di in enumerate(dof_inds):
+            dofs = self.dofmap.node_dof[nodes, di]
+            ok = dofs >= 0
+            pos = np.searchsorted(self.dirichlet_dofs, dofs[ok])
+            valid = pos < len(self.dirichlet_dofs)
+            pos = pos[valid]
+            sel = np.nonzero(ok)[0][valid]
+            hit = self.dirichlet_dofs[pos] == dofs[ok][valid]
+            src = torch.as_tensor(nodes[sel][hit], device=self.device)
+            out[torch.as_tensor(pos[hit], device=self.device)] = vals[src, i, :]
+        self.dirichlet_values = out
         self._effective_rhs = None
 
     # -- operator data ----------------------------------------------------------
@@ -450,19 +516,40 @@ class MatrixFreeSystem:
         return c.op_data
 
     def _volume_data(self, c: _Contribution):
+        """Operator data of a volume contribution, by the reference's strategy
+        ladder: lattice kinds, else dense, sum-factorized or fused, else direct."""
+        if self._use_lattice_sf(c):
+            return self._lattice_data(c)
+        use_dense = self._use_dense(c)
+        if not (use_dense or self._use_sumfact(c)):
+            return self._direct_data(c)
+        A_const = _constant_kernel_operators(c.kernel, c.time)
+        if A_const is None:
+            kind = "dense" if use_dense else "sumfact"
+            raise NotImplementedError(
+                f"variable-coefficient {kind} apply is not ported (ROADMAP.md queue A4)"
+            )
+        dim = c.tables.dim
+        Ji_t, w_t = self._geometry_packed(c)
+        gather = self._gather(c)
+        if use_dense:
+            from ..ops.dense_eval import dense_basis_matrix
+
+            Ball = self._tensor(dense_basis_matrix(c.tables))
+            return ("dense_const", A_const, Ji_t.to(self.dtype).contiguous(), w_t.to(self.dtype), Ball, gather)
+        if c.options.eval_strategy == LocalEvalStrategy.SUM_FACT_PALLAS:
+            # the fused kernel computes in float32 whatever the system dtype, as
+            # the reference's does; it takes J^-1 as (E, Q, dim, dim)
+            E, Q = c.verts.shape[0], c.tables.n_qp
+            ji = Ji_t.permute(2, 0, 1).reshape(E, Q, dim, dim).to(torch.float32).contiguous()
+            return ("pallas", A_const, ji, w_t.reshape(E, Q).to(torch.float32), gather)
+        return ("sumfact_const", A_const, Ji_t.to(self.dtype).contiguous(), w_t.to(self.dtype), gather)
+
+    def _lattice_data(self, c: _Contribution):
         from ..ops.lattice_sumfact import lattice_qp_perm
         from ..ops.zsweep import detect_diag_geometry
 
-        if c.options.eval_strategy not in (LocalEvalStrategy.AUTO, LocalEvalStrategy.LATTICE_SF):
-            raise NotImplementedError(
-                f"{c.options.eval_strategy.name} volume apply is not ported (ROADMAP.md queue A4)"
-            )
         plan = self._lattice_plan(c)
-        if plan is None:
-            raise NotImplementedError(
-                "the port's matrix-free apply needs a structured-lattice volume block; "
-                "gather-based paths are on ROADMAP.md (queue A4)"
-            )
         if c.tables.dim != 3:
             raise NotImplementedError("2D lattice apply is not ported (ROADMAP.md queue A4)")
         A_const = _constant_kernel_operators(c.kernel, c.time)
@@ -484,6 +571,8 @@ class MatrixFreeSystem:
         return ("lattice_sf_const", A_const, plan, Ji_l.to(self.dtype), w_l.to(self.dtype))
 
     def _boundary_data(self, c: _Contribution):
+        """A value-only kernel on a full lattice side runs as a banded face sweep;
+        every other boundary contribution is direct."""
         from ..ops.lattice_sumfact import pack_face_banded
 
         geom = element_geometry(c.tables, self._tensor(c.verts), with_phys_ders=False)
@@ -497,20 +586,56 @@ class MatrixFreeSystem:
             if 0 < len(ns) < c.tables.values.shape[1]:
                 fp = self._face_plan(c, ns)
         if fp is None:
-            raise NotImplementedError(
-                "boundary operators other than value-only kernels on full lattice sides "
-                "(the direct path) are not ported (ROADMAP.md queue A4)"
-            )
+            return self._direct_data(c, geom, A, dmask)
         q_order = c.options.quadrature_order(c.tables.order)
         A_l, w_l = pack_face_banded(
             A[:, :, :1].cpu().numpy(), geom.weights.cpu().numpy(), fp, c.tables.order, q_order
         )
         return ("face_banded", self._tensor(A_l), self._tensor(w_l), fp)
 
+    def _direct_data(self, c: _Contribution, geom=None, A=None, dmask=None):
+        """("direct", A, B, w, gather) with the reference's structural
+        restriction: identically-zero derivative blocks of A are dropped, and
+        basis columns with no support (off-face nodes of a value-only boundary
+        kernel) are dropped together with their dofs in the gather."""
+        if geom is None:
+            geom = element_geometry(c.tables, self._tensor(c.verts), with_phys_ders=False)
+            A, _ = eval_equation_kernel(c.kernel, geom, c.time)
+            dmask = (A.abs().amax(dim=(0, 1, 3, 4)) > 0).cpu().numpy()
+        E, Q = geom.weights.shape
+        n = c.tables.values.shape[1]
+        rows = [_const(c.tables.values, geom.weights)[None, :, None, :].expand(E, Q, 1, n)]
+        if dmask[1:].any():  # physical derivatives (J^-T refD) only where A needs them
+            rows.append(torch.einsum("eqji,qjn->eqin", geom.jac_inv, _const(c.tables.ref_ders, geom.weights)))
+        B = torch.cat(rows, dim=2)
+        keep_d = np.nonzero(dmask)[0]
+        if 0 < len(keep_d) < A.shape[2]:
+            A = A[:, :, keep_d]
+            B = B[:, :, torch.as_tensor(keep_d, device=self.device)]
+        ns = None
+        if len(keep_d):
+            support = (B.abs().amax(dim=(0, 1, 2)) > 0).cpu().numpy()
+            if not support.all() and support.any():
+                ns = np.nonzero(support)[0]
+                B = B[..., torch.as_tensor(ns, device=self.device)]
+        return ("direct", A, B, geom.weights, self._gather(c, ns))
+
+    def _gather(self, c: _Contribution, ns=None):
+        """(idx, n_rows) moving the contribution's element values: row_idx
+        (E, n_nodes) into an (n_rows, n_unk) view when every node's kernel dofs
+        are consecutive and row-aligned, else scalar dof indices (E, n_sel*n_unk)
+        with n_rows None; ``ns`` restricts to a subset of local nodes."""
+        rows = self._row_plan(c) if ns is None else None
+        if rows is not None:
+            return torch.as_tensor(rows[0], device=self.device), rows[1]
+        dofs = c.elem_dofs if ns is None else c.elem_dofs[:, ns]
+        return torch.as_tensor(dofs.reshape(dofs.shape[0], -1), device=self.device), None
+
     def _operators(self):
         """(lattice_key, [(contribution, op_data)]): the lattice key (n1, n_rows,
-        n_unk) is shared by every contribution when the operator runs on
-        channel-major vectors."""
+        n_unk) when every contribution is of the lattice family and all share
+        one lattice (the operator then runs on channel-major vectors too);
+        None otherwise."""
         if self._ops is None:
             if self._open or self._diag is None:
                 raise RuntimeError("the operator is available after end_assembly")
@@ -520,8 +645,11 @@ class MatrixFreeSystem:
                 if d[0] == "zero":
                     continue
                 n_unk = c.elem_dofs.shape[2]
-                n1 = d[2][0] if d[0] in _LATTICE_KINDS else d[3]["n1"]
-                keys.add((tuple(int(a) for a in n1), self.n_dofs // n_unk, n_unk))
+                if d[0] in _LATTICE_KINDS or d[0] == "face_banded":
+                    n1 = d[2][0] if d[0] in _LATTICE_KINDS else d[3]["n1"]
+                    keys.add((tuple(int(a) for a in n1), self.n_dofs // n_unk, n_unk))
+                else:
+                    keys.add(None)
                 ops.append((c, d))
             self._ops = (keys.pop() if len(keys) == 1 else None, ops)
         return self._ops
@@ -545,13 +673,37 @@ class MatrixFreeSystem:
             raise ValueError("system has no lattice layout")
         return from_lattice_layout(v, key[2])
 
+    def _local_apply(self, c: _Contribution, d, x_loc: torch.Tensor) -> torch.Tensor:
+        """y_loc (E, n_sel, n_unk) of one gather-family contribution."""
+        dim, order = c.tables.dim, c.tables.order
+        q_order = c.options.quadrature_order(order)
+        if d[0] == "dense_const":
+            from .local import local_apply_dense_const
+
+            return local_apply_dense_const(d[1], d[2], d[3], d[4], dim, x_loc)
+        if d[0] == "sumfact_const":
+            from .local import local_apply_sumfact_const
+
+            return local_apply_sumfact_const(d[1], d[2], d[3], x_loc.shape[0], order, q_order, dim, x_loc)
+        if d[0] == "pallas":
+            from ..ops.sumfact_fused import sumfact_const_apply
+
+            y = sumfact_const_apply(d[1], d[2], d[3], order, q_order, dim, x_loc.to(torch.float32))
+            return y.to(x_loc.dtype)
+        from .local import local_apply_direct
+
+        return local_apply_direct(d[1], d[2], d[3], x_loc)
+
     def _apply(self, x: torch.Tensor, lattice_io: bool) -> torch.Tensor:
-        """Unconstrained operator on (n_dofs, n_rhs) vectors: every lattice-family
-        contribution works on one channel-leading tensor per rhs column."""
+        """Unconstrained operator on (n_dofs, n_rhs) vectors.  Lattice-family
+        contributions work on one channel-leading tensor per rhs column;
+        gather-family ones gather element values per column and scatter-add
+        into one flat accumulator per column."""
         from ..ops.lattice_sumfact import face_apply_banded, local_apply_lattice
 
         _, ops = self._operators()
         tacc: dict = {}
+        flat: dict = {}
 
         def t_in(key, r):
             n1t, n_rows, n_unk = key
@@ -598,20 +750,37 @@ class MatrixFreeSystem:
                     )
                     acc(key, r, yt)
                 continue
-            _, A_l, w_l, fp = d
-            key = (tuple(fp["n1"]), self.n_dofs // n_unk, n_unk)
-            pos = 1 + (len(fp["n1"]) - 1 - fp["axis"])
-            pidx = fp["n1"][fp["axis"]] - 1 if fp["hi"] else 0
+            if d[0] == "face_banded":
+                _, A_l, w_l, fp = d
+                key = (tuple(fp["n1"]), self.n_dofs // n_unk, n_unk)
+                pos = 1 + (len(fp["n1"]) - 1 - fp["axis"])
+                pidx = fp["n1"][fp["axis"]] - 1 if fp["hi"] else 0
+                for r in range(r_n):
+                    t = t_in(key, r)
+                    yp = face_apply_banded(A_l, w_l, fp, c.tables.order, q_order, t.select(pos, pidx))
+                    if (key, r) not in tacc:
+                        tacc[(key, r)] = torch.zeros_like(t)
+                    # accumulators are fresh tensors owned here: add the plane in place
+                    tacc[(key, r)].select(pos, pidx).add_(yp)
+                continue
+            idx, n_rows = d[-1]
+            E = idx.shape[0]
             for r in range(r_n):
-                t = t_in(key, r)
-                yp = face_apply_banded(A_l, w_l, fp, c.tables.order, q_order, t.select(pos, pidx))
-                if (key, r) not in tacc:
-                    tacc[(key, r)] = torch.zeros_like(t)
-                # accumulators are fresh tensors owned here: add the plane in place
-                tacc[(key, r)].select(pos, pidx).add_(yp)
+                if r not in flat:
+                    flat[r] = torch.zeros(self.n_dofs, dtype=x.dtype, device=x.device)
+                if n_rows is not None:  # node-row gather / scatter
+                    x_loc = x[:, r].reshape(n_rows, n_unk)[idx]
+                    y_loc = self._local_apply(c, d, x_loc)
+                    flat[r].view(n_rows, n_unk).index_add_(0, idx.reshape(-1), y_loc.reshape(-1, n_unk))
+                else:  # scalar dof indices (restricted node subsets)
+                    x_loc = x[idx, r].reshape(E, -1, n_unk)
+                    y_loc = self._local_apply(c, d, x_loc)
+                    flat[r].index_add_(0, idx.reshape(-1), y_loc.reshape(-1))
         y = torch.zeros_like(x)
         for (key, r), t in tacc.items():
             y[:, r] += t.reshape(-1) if lattice_io else t.reshape(key[2], -1).T.reshape(-1)
+        for r, v in flat.items():
+            y[:, r] += v
         return y
 
     def raw_parts(self, layout: str = "dof"):

@@ -19,24 +19,16 @@
 // phase 2 runs the z transpose from it, and only the band of each table row
 // is visited.  One block per tile of TQ columns; the z tables and their band
 // limits are staged in shared memory; the nonzero entries of the constant A
-// live in __constant__ memory, so zero coefficients cost nothing.  This is
-// the simple correct design: it runs one block per SM at the bench and is
-// latency-bound, not yet near the byte bound.
+// live in __constant__ memory (const_coeffs.cuh, by-equation table), so zero
+// coefficients cost nothing.  This is the simple correct design: it runs one
+// block per SM at the bench and is latency-bound, not yet near the byte bound.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (l3ster_tpu_torch/ops/zsweep.py builds and loads it with ctypes).
 
-#include <cuda_runtime.h>
+#include "const_coeffs.cuh"
 
-#define ZS_MAX_ENT 2048
-#define ZS_MAX_EQ 64
 #define ZS_THREADS 256
-
-// nonzero entries of A grouped by equation i: for e in [eqstart[i], eqstart[i+1]),
-// A[d, i, u] = val[e] with slot[e] = d * c + u
-__constant__ int c_slot[ZS_MAX_ENT];
-__constant__ double c_val[ZS_MAX_ENT];
-__constant__ int c_eqstart[ZS_MAX_EQ + 1];
 
 template <typename T, bool DIAG>
 __global__ void __launch_bounds__(ZS_THREADS) zsweep_kernel(
@@ -120,12 +112,12 @@ __global__ void __launch_bounds__(ZS_THREADS) zsweep_kernel(
             }
             const T w = DIAG ? g4[s] * g3[q] : g1[(size_t)s * RQ + q];
             for (int i = 0; i < n_eq; ++i) {
-                const int e0 = c_eqstart[i], e1 = c_eqstart[i + 1];
+                const int e0 = ca_eqstart[i], e1 = ca_eqstart[i + 1];
                 if (e0 == e1) continue;
                 T r = 0;
-                for (int e = e0; e < e1; ++e) r += (T)c_val[e] * G[c_slot[e] * SQ + base];
+                for (int e = e0; e < e1; ++e) r += (T)ca_rval[e] * G[(ca_rd[e] * c + ca_ru[e]) * SQ + base];
                 r *= w;
-                for (int e = e0; e < e1; ++e) Tacc[c_slot[e] * SQ + base] += (T)c_val[e] * r;
+                for (int e = e0; e < e1; ++e) Tacc[(ca_rd[e] * c + ca_ru[e]) * SQ + base] += (T)ca_rval[e] * r;
             }
             for (int u = 0; u < c; ++u) {
                 const T t0 = Tacc[(0 * c + u) * SQ + base];
@@ -174,20 +166,6 @@ __global__ void __launch_bounds__(ZS_THREADS) zsweep_kernel(
     }
 }
 
-// Makes `device` current for the calling thread and restores the previous
-// device on scope exit, as PyTorch's device guard does around an op.
-struct DeviceGuard {
-    int prev = -1;
-    cudaError_t status;
-    explicit DeviceGuard(int device) {
-        status = cudaGetDevice(&prev);
-        if (status == cudaSuccess && prev != device) status = cudaSetDevice(device);
-    }
-    ~DeviceGuard() {
-        if (prev >= 0) cudaSetDevice(prev);
-    }
-};
-
 template <typename T, bool DIAG>
 static int launch(const T* b, const T* bdy, const T* bdx, const T* g0, const T* g1,
                   const T* g2, const T* g3, const T* g4, const T* NzT, const T* DzT,
@@ -206,32 +184,9 @@ static int launch(const T* b, const T* bdy, const T* bdx, const T* g0, const T* 
     return (int)cudaGetLastError();
 }
 
+CA_EXPORTS(zsweep)
+
 extern "C" {
-
-int zsweep_max_entries() { return ZS_MAX_ENT; }
-int zsweep_max_equations() { return ZS_MAX_EQ; }
-
-// Upload the nonzero entries of A (stream-ordered before the next launch on `stream`).
-int zsweep_set_coeffs(const int* slot, const double* val, const int* eqstart, int n_ent,
-                      int n_eq, int device, void* stream)
-{
-    if (n_ent > ZS_MAX_ENT || n_eq > ZS_MAX_EQ) return (int)cudaErrorInvalidValue;
-    DeviceGuard guard(device);
-    if (guard.status != cudaSuccess) return (int)guard.status;
-    cudaError_t e;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (n_ent > 0) {
-        e = cudaMemcpyToSymbolAsync(c_slot, slot, n_ent * sizeof(int), 0,
-                                    cudaMemcpyHostToDevice, st);
-        if (e != cudaSuccess) return (int)e;
-        e = cudaMemcpyToSymbolAsync(c_val, val, n_ent * sizeof(double), 0,
-                                    cudaMemcpyHostToDevice, st);
-        if (e != cudaSuccess) return (int)e;
-    }
-    e = cudaMemcpyToSymbolAsync(c_eqstart, eqstart, (n_eq + 1) * sizeof(int), 0,
-                                cudaMemcpyHostToDevice, st);
-    return (int)e;
-}
 
 int zsweep_f32(const float* b, const float* bdy, const float* bdx, const float* g0,
                const float* g1, const float* g2, const float* g3, const float* g4,

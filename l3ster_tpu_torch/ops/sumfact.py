@@ -1,11 +1,12 @@
 """Sum-factorized tensor-product sweeps (PyTorch port of ``l3ster_tpu.ops.sumfact``).
 
-For Quad/Hex Lagrange elements the quadrature-to-nodes transpose sweep
-factorizes into 1D contractions, batched over elements.  This slice needs
-only the transpose sweeps, which the rhs and diagonal pass uses
-(``algsys/local.py``), in 3D.  Layout: node index = ix + (p+1)*iy + (p+1)^2*iz,
-i.e. a reshape to (..., nz, ny, nx) puts x in the last axis; QP indices use
-the same convention.
+For Quad/Hex Lagrange elements the nodes <-> quadrature interpolation
+factorizes into 1D contractions, batched over elements, in 2D and 3D.  The
+rhs and diagonal pass uses the transpose sweeps (``algsys/local.py``), the
+sum-factorized apply both directions.  The reference's odd-even split of the
+1D tables is a TPU device and is not ported: each 1D contraction is one
+einsum.  Layout: node index = ix + (p+1)*iy + (p+1)^2*iz, i.e. a reshape to
+(..., nz, ny, nx) puts x in the last axis; QP indices use the same convention.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ from ..mesh.traits import ElementType
 
 __all__ = [
     "sumfact_tables_1d",
+    "sumfact_interpolate",
     "sumfact_transpose",
+    "sumfact_transpose_channels",
     "sumfact_transpose_general",
     "supports_sumfact",
 ]
@@ -45,40 +48,85 @@ def _tab(M, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.asarray(M), dtype=like.dtype, device=like.device)
 
 
-def _require_3d(dim: int) -> None:
-    if dim != 3:
-        raise NotImplementedError(
-            f"the port's sum-factorized sweeps are 3D (ROADMAP.md queue A4), got {dim}D"
-        )
+def _require_2d_3d(dim: int) -> None:
+    if dim not in (2, 3):
+        raise ValueError(f"sum factorization supports dim 2/3, got {dim}")
 
 
-def _cz(s, M):  # contract the z axis (axis 1) of (E, z, y, x, c)
+# 1D contractions of (E, [z,] y, x, c) tensors with a table M (n_in, n_out):
+# out[..., o, ...] = sum_i M[i, o] * s[..., i, ...] along one spatial axis
+
+
+def _cz(s, M):  # the z axis (axis 1) of (E, z, y, x, c)
     return torch.einsum("eabxc,an->enbxc", s, M)
 
 
-def _cy(s, M):  # contract the y axis (axis 2)
-    return torch.einsum("ezbxc,bn->eznxc", s, M)
+def _cy(s, M):  # the y axis: axis 2 in 3D, axis 1 in 2D
+    if s.dim() == 5:
+        return torch.einsum("ezbxc,bn->eznxc", s, M)
+    return torch.einsum("ebxc,bn->enxc", s, M)
 
 
-def _cx(s, M):  # contract the x axis (axis 3)
-    return torch.einsum("ezyac,an->ezync", s, M)
+def _cx(s, M):  # the x axis: the last one before the channel
+    return torch.einsum("...ac,an->...nc", s, M)
+
+
+def sumfact_interpolate(u: torch.Tensor, N1, D1, dim: int):
+    """Nodes -> QPs: values and reference derivatives.
+
+    u: (E, n_nodes, c) in lexicographic node order; N1, D1: (n_q1, p+1).
+    Returns vals (E, Q, c) and ders (E, dim, Q, c) with Q = n_q1^dim,
+    QP index = qx + n_q1*qy + n_q1^2*qz (same lex convention).
+    """
+    _require_2d_3d(dim)
+    E, _, c = u.shape
+    NT, DT = _tab(N1, u).T, _tab(D1, u).T  # (p+1, n_q1)
+    p1 = NT.shape[0]
+    t = u.reshape((E,) + (p1,) * dim + (c,))
+    ax, adx = _cx(t, NT), _cx(t, DT)
+    if dim == 2:
+        vals, ddy, ddx = _cy(ax, NT), _cy(ax, DT), _cy(adx, NT)
+        ders = (ddx, ddy)
+    else:
+        b, bdy, bdx = _cy(ax, NT), _cy(ax, DT), _cy(adx, NT)
+        vals, ddz, ddy, ddx = _cz(b, NT), _cz(b, DT), _cz(bdy, NT), _cz(bdx, NT)
+        ders = (ddx, ddy, ddz)
+    return vals.reshape(E, -1, c), torch.stack([d.reshape(E, -1, c) for d in ders], dim=1)
 
 
 def sumfact_transpose(t0: torch.Tensor, td: torch.Tensor, N1, D1, dim: int) -> torch.Tensor:
-    """QPs -> nodes: transpose of the nodes -> (values, reference derivatives) sweep.
+    """QPs -> nodes: exact transpose of :func:`sumfact_interpolate`.
 
     t0: (E, Q, c) value-part integrand; td: (E, dim, Q, c) reference-space
-    derivative parts; N1, D1: (n_q1, p+1) 1D tables.  Returns y (E, n_nodes, c).
+    derivative parts.  Returns y (E, n_nodes, c).
     """
-    _require_3d(dim)
+    _require_2d_3d(dim)
     E, Q, c = t0.shape
     N, D = _tab(N1, t0), _tab(D1, t0)
     nq, p1 = N.shape
-    s0, sx, sy, sz = (t.reshape(E, nq, nq, nq, c) for t in (t0, td[:, 0], td[:, 1], td[:, 2]))
-    b = _cz(s0, N) + _cz(sz, D)  # (E, z, qy, qx, c)
-    a = _cy(b, N) + _cy(_cz(sy, N), D)  # (E, z, y, qx, c)
-    adx = _cy(_cz(sx, N), N)
-    return (_cx(a, N) + _cx(adx, D)).reshape(E, p1**3, c)
+    sh = (E,) + (nq,) * dim + (c,)
+    s0 = t0.reshape(sh)
+    sd = [td[:, j].reshape(sh) for j in range(dim)]
+    if dim == 2:
+        a = _cy(s0, N) + _cy(sd[1], D)  # (E, y, qx, c)
+        adx = _cy(sd[0], N)
+    else:
+        b = _cz(s0, N) + _cz(sd[2], D)  # (E, z, qy, qx, c)
+        a = _cy(b, N) + _cy(_cz(sd[1], N), D)  # (E, z, y, qx, c)
+        adx = _cy(_cz(sd[0], N), N)
+    return (_cx(a, N) + _cx(adx, D)).reshape(E, p1**dim, c)
+
+
+def sumfact_transpose_channels(t0_ch, td_ch, N1, D1, dim: int, E: int) -> torch.Tensor:
+    """Transpose sweep of per-channel flat (E*Q,) vectors.
+
+    t0_ch: list of c vectors (E*Q,); td_ch: [dim][c] vectors (E*Q,).
+    Returns y (E, n_nodes, c), as :func:`sumfact_transpose` of the stacked
+    channels.
+    """
+    t0 = torch.stack(t0_ch, dim=-1).reshape(E, -1, len(t0_ch))
+    td = torch.stack([torch.stack(ch, dim=-1).reshape(E, -1, len(ch)) for ch in td_ch], dim=1)
+    return sumfact_transpose(t0, td, N1, D1, dim)
 
 
 def sumfact_transpose_general(s: torch.Tensor, axis_tables: list, dim: int) -> torch.Tensor:
@@ -89,9 +137,11 @@ def sumfact_transpose_general(s: torch.Tensor, axis_tables: list, dim: int) -> t
     sum-factorized operator diagonal, where the elementwise basis products
     B_j * B_k factorize into per-axis products of N1/D1 tables.
     """
-    _require_3d(dim)
+    _require_2d_3d(dim)
     E, Q, c = s.shape
-    Tx, Ty, Tz = (_tab(T, s) for T in axis_tables)
-    nq = Tx.shape[0]
-    t = s.reshape(E, nq, nq, nq, c)
-    return _cx(_cy(_cz(t, Tz), Ty), Tx).reshape(E, -1, c)
+    T = [_tab(M, s) for M in axis_tables]
+    nq = T[0].shape[0]
+    t = s.reshape((E,) + (nq,) * dim + (c,))
+    if dim == 3:
+        t = _cz(t, T[2])
+    return _cx(_cy(t, T[1]), T[0]).reshape(E, -1, c)

@@ -12,20 +12,19 @@ note).  The variable-coefficient mode stays on ``ROADMAP.md`` (queue B).
 :func:`fused_z_sweep_plain` (torch.einsum); on a CUDA tensor it launches the
 kernel or raises.  The kernel is built with ``nvcc`` from the package's
 sources at first use into ``l3ster_tpu_torch/_build/`` and bound with
-``ctypes``.  ``launch_count`` counts kernel launches.
+``ctypes`` (``ops/_cuda.py``).  ``launch_count`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from dataclasses import dataclass
-from functools import lru_cache
 
 import numpy as np
 import torch
+
+from ._cuda import SMEM_LIMIT as _SMEM_LIMIT
+from ._cuda import declare_coefficients, device_and_stream, load, upload_coefficients
 
 __all__ = [
     "detect_diag_geometry",
@@ -33,17 +32,9 @@ __all__ = [
     "zsweep_tables",
     "fused_z_sweep",
     "fused_z_sweep_plain",
-    "build_library",
 ]
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "zsweep.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-
 launch_count = 0  # kernel launches; read and reset by callers that check the path
-build_log = ""  # nvcc's -Xptxas=-v report of the last build in this process
-_lib = None
 # per device: the coefficient set last uploaded to the kernel's __constant__
 # memory.  Uploads are ordered on the launching stream, so launches on one
 # stream at a time per device see their own coefficients.
@@ -161,70 +152,17 @@ def fused_z_sweep(A_const, b, bdy, bdx, geom: tuple, tabs: ZSweepTables):
 # ---------------------------------------------------------------------- build
 
 
-def build_library() -> str:
-    """Compile ``csrc/zsweep.cu`` for sm_90a (once per source version) and
-    return the shared library's path; raises if ``nvcc`` fails or is missing."""
-    global build_log
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:16]
-    path = os.path.join(_BUILD_DIR, f"zsweep-{digest}.so")
-    if os.path.exists(path):
-        return path
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found (no CUDA toolkit): cannot build the z-sweep kernel")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [
-        os.path.join(CUDA_HOME, "bin", "nvcc"),
-        "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-        "-o", tmp, _SRC,
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    build_log = proc.stderr
-    os.replace(tmp, path)  # atomic: a concurrent build never sees a partial file
-    return path
+def _declare(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    declare_coefficients(lib, "zsweep")
+    for name in ("zsweep_f32", "zsweep_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 14 + [ci] * 9 + [vp]
+        fn.restype = ci
 
 
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library())
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.zsweep_set_coeffs.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-        lib.zsweep_set_coeffs.restype = ci
-        for name in ("zsweep_f32", "zsweep_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [vp] * 14 + [ci] * 9 + [vp]
-            fn.restype = ci
-        for name in ("zsweep_max_entries", "zsweep_max_equations"):
-            getattr(lib, name).restype = ci
-        _lib = lib
-    return _lib
-
-
-@lru_cache(maxsize=64)
-def _coeffs(a_bytes: bytes, shape: tuple):
-    """Nonzero entries of A (4, n_eq, c) grouped by equation: (slot, val, eqstart)."""
-    A = np.frombuffer(a_bytes, dtype=np.float64).reshape(shape)
-    d1, n_eq, c = shape
-    slot, val, eqstart = [], [], [0]
-    for i in range(n_eq):
-        for d in range(d1):
-            for u in range(c):
-                if A[d, i, u] != 0.0:
-                    slot.append(d * c + u)
-                    val.append(A[d, i, u])
-        eqstart.append(len(slot))
-    return (
-        np.asarray(slot, np.int32),
-        np.asarray(val, np.float64),
-        np.asarray(eqstart, np.int32),
-    )
+    return load("zsweep", _declare)
 
 
 def _tile_columns(c: int, n1z: int, S: int, itemsize: int) -> tuple[int, int]:
@@ -267,24 +205,13 @@ def _launch(A_const, b, bdy, bdx, geom, tabs: ZSweepTables):
     for x, n in zip(g, sizes):
         if x.numel() != n:
             raise ValueError(f"fused z-sweep: geometry tensor of {x.numel()} values, expected {n}")
-    slot, val, eqstart = _coeffs(A.tobytes(), A.shape)
     n_eq = A.shape[1]
-    if len(slot) > lib.zsweep_max_entries() or n_eq > lib.zsweep_max_equations():
-        raise ValueError(f"A has {len(slot)} nonzeros / {n_eq} equations: over the kernel's limits")
     tq, smem = _tile_columns(c, n1z, S, b.element_size())
     b, bdy, bdx = b.contiguous(), bdy.contiguous(), bdx.contiguous()
     g = [x.contiguous() for x in g] + [None] * (5 - len(g))
     a, ady, adx = (torch.empty_like(b) for _ in range(3))
-    dev = b.device.index if b.device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    key = (A.tobytes(), A.shape)
-    if _uploaded.get(dev) != key:
-        rc = lib.zsweep_set_coeffs(
-            slot.ctypes.data, val.ctypes.data, eqstart.ctypes.data, len(slot), n_eq, dev, stream
-        )
-        if rc != 0:
-            raise RuntimeError(f"z-sweep coefficient upload failed: CUDA error {rc}")
-        _uploaded[dev] = key
+    dev, stream = device_and_stream(b)
+    upload_coefficients(lib, "zsweep", A, dev, stream, _uploaded)
     fn = lib.zsweep_f32 if b.dtype == torch.float32 else lib.zsweep_f64
     ptr = [None if x is None else x.data_ptr() for x in [b, bdy, bdx] + g]
     rc = fn(
