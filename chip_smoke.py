@@ -1,12 +1,19 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives ``l3ster_tpu_torch`` (never JAX, never ``l3ster_tpu``) through its
-two main paths, matrix-free 3D diffusion (4 unknowns, 7 equations, constant
-coefficients, float32), each solved with CG + Jacobi:
+main paths, matrix-free 3D diffusion (4 unknowns, 7 equations, float32),
+each solved with CG + Jacobi:
 
 * the lattice path at the bench configuration: a p=6 cube of 6^3 hexes
   (202,612 dofs), value-only adiabatic faces on sides 1-4 and Dirichlet T on
   sides 5-6, the operator taken as ``operator_parts(layout="lattice")``;
+  constant coefficients (``lattice_sf_const_diag``), then the same system
+  under each of the reference's opt-in pipelines (``L3STER_TPU_ZSWEEP=v1``:
+  the v1 z-sweep; ``L3STER_TPU_XY_PALLAS=1``: the x/y stage kernel);
+* the variable-coefficient lattice path (``lattice_sf_var``): the bench
+  kernel with its conservation row times k = 1 + x*y, Dirichlet T = x from a
+  boundary kernel, at the bench size and on a 12^3-hex p=6 cube (1,556,068
+  dofs);
 * the unstructured path on the cylinder-in-channel mesh at its default size
   (``make_cylinder_in_channel_3d()``, 17,456 hexes) at p = 4 (4,789,376
   dofs): Dirichlet T = x from a boundary residual kernel on the inlet (3),
@@ -22,25 +29,35 @@ Phases, each reported on its own line:
    all started together;
 3. each kernel against its plain torch version at its main path's shapes,
    f64 and f32, with CUDA-event times of kernel, plain version and a
-   cuBLAS-matmul chain of the same function (``library_ms``);
+   cuBLAS-matmul chain of the same function (``library_ms``): the z-sweep
+   const (diag, full) and var (full, diag, K = 15 planes) at the bench
+   shapes, its ``"zc"`` layout, the v1 wrapper, the stage kernel in the six
+   stage shapes of an x/y-pipeline apply (single and K-concat forms), then
+   the per-QP and fused sum-factorized kernels at the cylinder's shapes;
 4. the lattice main path: the bench system's operator apply (f32) against
    the same system in f64 on the card, and a small system against the CPU
-   path; apply time and GFLOP/s;
+   path; apply time, GFLOP/s, device-busy time and idle share;
 5. CG + Jacobi on the manufactured T = x problem at the bench size;
-6. the unstructured main path: the cylinder system's apply (f32, AUTO)
+6. the bench system under each opt-in pipeline: its apply against the
+   default one, its time, device-busy time and kernel launches;
+7. the variable-coefficient path at the bench size and at 12^3 hexes: f32
+   apply against the f64 system on the card (and, at the bench size, a small
+   f64 system against the CPU path), apply time, device-busy time, idle
+   share and the costliest kernels, then CG + Jacobi with its nodal errors;
+8. the unstructured main path: the cylinder system's apply (f32, AUTO)
    against the same system in f64 on the card, a small cylinder system
    against the CPU path, apply time, device-busy time and idle share; the
    same system under SUM_FACT_PALLAS against the f64 apply, and its time;
-7. CG + Jacobi on the cylinder problem.
+9. CG + Jacobi on the cylinder problem.
 
-Each kernel's launch count is set to 0 just before its main path (phase 4
-for the z-sweep; phase 6 for the per-QP kernel, after its comparison systems
-ran, and just before the SUM_FACT_PALLAS system for the fused one) and read
-just after it (phases 5 and 7).  The second-to-last lines are
-the kernels' JSON record and the nvidia-smi line; the last line is
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
-line.  Run: ``python3 chip_smoke.py`` (one card); ``--profile`` adds a
-torch.profiler breakdown of one bench apply.
+Each kernel's launch count is set to 0 just before the path it is counted
+on and read just after it: the z-sweep's const mode on phases 4-5, its var
+mode on the bench-size phase 7, the v1 wrapper and the stage kernel on their
+phase 6 systems, the per-QP kernel on phases 8-9 (after its comparison
+systems ran), the fused one on the SUM_FACT_PALLAS system.  The
+second-to-last lines are the kernels' JSON record and the nvidia-smi line;
+the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero before that line.  Run: ``python3 chip_smoke.py`` (one card).
 """
 
 from __future__ import annotations
@@ -156,17 +173,36 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _build_system(lp, order, n_1d, dtype, device):
+def _var_diffusion_3d(inp, out):
+    """The bench kernel with its conservation row times k(x, y) = 1 + x*y (the
+    reference's variable-coefficient oracle, tests/test_lattice_sf.py:_var_3d);
+    the exact solution stays T = x, q = (1, 0, 0)."""
+    _diffusion_3d(inp, out)
+    ops, _ = out
+    k = 1.0 + inp.point.x * inp.point.y
+    ops[1][0, 1] = -k
+    ops[2][0, 2] = -k
+    ops[3][0, 3] = -k
+
+
+def _build_system(lp, order, n_1d, dtype, device, kernel=_diffusion_3d):
+    """The bench configuration on an order-``order`` cube of (n_1d - 1)^3 hexes.
+    The constant kernel takes T = 0 and T = 1 on sides 5 and 6; the variable
+    one T = x from a boundary kernel (the same values on the unit cube)."""
     mesh = lp.generate_mesh(lp.make_cube_mesh(np.linspace(0.0, 1.0, n_1d)), order=order)
     problem = lp.ProblemDefinition(4, [0])
     bcs = lp.BCDefinition(problem)
     bcs.define_dirichlet([5, 6], [0])
     params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
     system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
-    kd = lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4))
+    kd = lp.wrap_domain_equation_kernel(kernel, lp.KernelParams(3, 7, 4))
     kn = lp.wrap_boundary_equation_kernel(_adiabatic_3d, lp.KernelParams(3, 1, 4))
-    system.set_dirichlet_bc_values([0.0], [5], [0])  # T = x: 0 on the left ...
-    system.set_dirichlet_bc_values([1.0], [6], [0])  # ... and 1 on the right
+    if kernel is _diffusion_3d:
+        system.set_dirichlet_bc_values([0.0], [5], [0])  # T = x: 0 on the left ...
+        system.set_dirichlet_bc_values([1.0], [6], [0])  # ... and 1 on the right
+    else:
+        kdir = lp.wrap_boundary_residual_kernel(_t_equals_x, lp.KernelParams(3, 1))
+        system.set_dirichlet_bc_values(kdir, [5, 6], [0])
     system.begin_assembly()
     system.assemble_problem(kd, [0])
     system.assemble_problem(kn, [1, 2, 3, 4])
@@ -174,9 +210,10 @@ def _build_system(lp, order, n_1d, dtype, device):
     return mesh, system
 
 
-def _library_zsweep(A, b, bdy, bdx, geom, NzT, DzT):
-    """The z-sweep's function as cuBLAS matmuls and elementwise torch: the
-    yardstick for ``library_ms``; the port never calls it."""
+def _library_zsweep(A, b, bdy, bdx, geom, NzT, DzT, var=None):
+    """The z-sweep's function as cuBLAS matmuls and elementwise torch (a
+    variable A through index_add_ over its planes): the yardstick for
+    ``library_ms``; the port never calls it."""
     import torch
 
     c, n1z, RQ = b.shape
@@ -185,8 +222,7 @@ def _library_zsweep(A, b, bdy, bdx, geom, NzT, DzT):
     X = torch.stack([b, bdy, bdx])  # (3, c, n1z, RQ)
     Y = torch.matmul(TND, X)  # (3, c, 2S, RQ)
     v, dz, dy, dx = Y[0, :, :S], Y[0, :, S:], Y[1, :, :S], Y[2, :, :S]
-    Am = torch.as_tensor(A, dtype=b.dtype, device=b.device)
-    d1, n_eq, _ = Am.shape
+    d1 = 4
     if geom[0] == "diag":
         _, jx, jy, jz, wyx, wz = geom
         g = torch.stack([v, jx * dx, jy * dy, jz * dz])
@@ -195,9 +231,20 @@ def _library_zsweep(A, b, bdy, bdx, geom, NzT, DzT):
         _, ji, w = geom
         J = ji.reshape(3, 3, S, RQ)
         g = torch.cat([v[None], torch.einsum("jisq,jcsq->icsq", J, torch.stack([dx, dy, dz]))])
-    M = Am.permute(1, 0, 2).reshape(n_eq, d1 * c)  # (n_eq, 4c)
-    r = torch.matmul(M, g.reshape(d1 * c, S * RQ)) * w.reshape(1, S * RQ)
-    t = torch.matmul(M.T, r).reshape(d1, c, S, RQ)
+    if var is None:
+        Am = torch.as_tensor(A, dtype=b.dtype, device=b.device)
+        n_eq = Am.shape[1]
+        M = Am.permute(1, 0, 2).reshape(n_eq, d1 * c)  # (n_eq, 4c)
+        r = torch.matmul(M, g.reshape(d1 * c, S * RQ)) * w.reshape(1, S * RQ)
+        t = torch.matmul(M.T, r).reshape(d1, c, S, RQ)
+    else:
+        nz, A_nz, n_eq = var
+        slot = torch.as_tensor([d * c + u for d, _, u in nz], device=b.device)
+        eq = torch.as_tensor([i for _, i, _ in nz], device=b.device)
+        gk = g.reshape(d1 * c, S, RQ)[slot] * A_nz
+        r = torch.zeros((n_eq, S, RQ), dtype=b.dtype, device=b.device).index_add_(0, eq, gk) * w
+        t = torch.zeros((d1 * c, S, RQ), dtype=b.dtype, device=b.device)
+        t = t.index_add_(0, slot, A_nz * r[eq]).reshape(d1, c, S, RQ)
     if geom[0] == "diag":
         tx, ty, tz = jx * t[1], jy * t[2], jz * t[3]
     else:
@@ -232,12 +279,13 @@ def phase_environment() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    from l3ster_tpu_torch.ops import _cuda, qp, sumfact_fused, zsweep
+    from l3ster_tpu_torch.ops import _cuda, qp, stages, sumfact_fused, zsweep
 
-    names = ("zsweep", "qp_algebra", "sumfact_fused")
+    names = ("zsweep", "qp_algebra", "sumfact_fused", "stage_matmul")
     t0 = time.perf_counter()
     paths = _cuda.build(*names)  # one nvcc per source, all at once
     zsweep._library()
+    stages._library()
     _cuda.load("qp_algebra", qp._declare)
     _cuda.load("sumfact_fused", sumfact_fused._declare)
     seconds = round(time.perf_counter() - t0, 3)
@@ -247,93 +295,253 @@ def phase_build() -> None:
         _say("build", kernel=n, seconds=seconds, library=paths[n], ptxas=ptxas)
 
 
-def phase_kernels(lp) -> dict:
-    """Kernel vs plain at the bench shape; returns the kernel's JSON record."""
-    import torch
-
+def _bench_kernel_inputs(lp, seed: int):
+    """Bench shapes (p = 6, 6^3 hexes) and random inputs of the z-sweep: the
+    constant A of the bench kernel, the nonzero planes of its variable form
+    and both geometries, made with numpy from a seed."""
     from l3ster_tpu_torch.algsys.system import _constant_kernel_operators
     from l3ster_tpu_torch.ops.lattice_sumfact import banded_tables
-    from l3ster_tpu_torch.ops.zsweep import fused_z_sweep, fused_z_sweep_plain, zsweep_tables
 
     order, ne, q_order = 6, 6, lp.AssemblyOptions().quadrature_order(6)
     q1 = q_order // 2 + 1
-    S = R = Q = ne * q1
-    RQ = R * Q
+    S = ne * q1
+    RQ = S * S
     c, n1z = 4, ne * order + 1
-    kd = lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4))
-    A = _constant_kernel_operators(kd, 0.0)
-    Ng, Dg = banded_tables(order, q_order, ne)
-    rng = np.random.default_rng(0)
+    A = _constant_kernel_operators(lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4)), 0.0)
+    nz = tuple(tuple(int(v) for v in ix) for ix in np.argwhere(A != 0))  # the var kernel's 15 planes
+    rng = np.random.default_rng(seed)
     host = {
         "b": rng.normal(size=(3, c, n1z, RQ)),
+        "A_nz": np.stack([A[d, i, u] * rng.uniform(1.0, 2.0, (S, RQ)) for d, i, u in nz]),
         "jx": rng.uniform(0.5, 1.5, (1, RQ)), "jy": rng.uniform(0.5, 1.5, (1, RQ)),
         "jz": rng.uniform(0.5, 1.5, (S, 1)), "wyx": rng.uniform(0.5, 1.0, (1, RQ)),
         "wz": rng.uniform(0.5, 1.0, (S, 1)),
         "ji": rng.normal(size=(9, S, RQ)) * 0.1 + np.eye(3).reshape(9, 1, 1),
         "w": rng.uniform(0.5, 1.0, (S, RQ)),
     }
-    record = None
-    for mode in ("diag", "full"):
-        out = {}
+    Ng, Dg = banded_tables(order, q_order, ne)
+    return dict(A=A, nz=nz, host=host, Ng=Ng, Dg=Dg, c=c, n1z=n1z, S=S, RQ=RQ)
+
+
+def _bench_args(inp, dt, mode: str, layout: str = "cz"):
+    """(b, bdy, bdx, geom, tabs, A_nz) on the card in dtype dt: the b tensors
+    in the given layout, the geometry of the given mode, the z tables."""
+    import torch
+
+    from l3ster_tpu_torch.ops.zsweep import zsweep_tables
+
+    d = {k: torch.as_tensor(v, dtype=dt, device="cuda") for k, v in inp["host"].items()}
+    b = [d["b"][i] for i in range(3)]
+    if layout == "zc":
+        b = [x.transpose(0, 1).contiguous() for x in b]
+    if mode == "diag":
+        geom = ("diag", d["jx"], d["jy"], d["jz"], d["wyx"], d["wz"])
+    else:
+        geom = ("full", d["ji"], d["w"])
+    return (*b, geom, zsweep_tables(inp["Ng"].T, inp["Dg"].T, dt, "cuda"), d["A_nz"])
+
+
+def _zsweep_bound(inp, tabs, mode: str, K: int, nnz: int) -> tuple[float, str, int, int]:
+    """(bound ms, bound by, bytes, flops) of one z-sweep call in f32: the six
+    b/a tensors, the geometry, the tables and K streamed planes each moved
+    once; the FMAs of the nonzero table band and of the per-QP algebra."""
+    c, n1z, S, RQ = inp["c"], inp["n1z"], inp["S"], inp["RQ"]
+    band = tabs.band.cpu().numpy()
+    zlo, zhi, slo, shi = np.split(band, [S, 2 * S, 2 * S + n1z])
+    geo = (3 * RQ + 2 * S) if mode == "diag" else 10 * S * RQ
+    flops = (
+        8 * c * RQ * int((zhi - zlo + 1).sum())  # z interpolation: 4 FMAs per band entry
+        + 8 * c * RQ * int((shi - slo + 1).sum())  # z transpose: 4 FMAs per band entry
+        + S * RQ * (4 * nnz + 7 + (6 if mode == "diag" else 30) * c)  # per-QP algebra
+    )
+    nbytes = 4 * (6 * c * n1z * RQ + geo + K * S * RQ + 2 * n1z * S) + 4 * band.size
+    return _bound(nbytes, flops) + (nbytes, flops)
+
+
+def _compare_call(kernel, plain, library, args64, args32) -> dict:
+    """Kernel (f64 and f32) against the plain version (f64), and the times of
+    kernel, plain version and library chain in f32."""
+    import torch
+
+    ref = plain(*args64)
+    k64, k32, lib = kernel(*args64), kernel(*args32), library(*args32)
+    torch.cuda.synchronize()
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    k64, k32, lib = ((x if isinstance(x, tuple) else (x,)) for x in (k64, k32, lib))
+    scale = max(float(r.abs().max()) for r in ref)
+    err64 = max(float((k - r).abs().max()) for k, r in zip(k64, ref)) / scale
+    abs32 = max(float((k.double() - r).abs().max()) for k, r in zip(k32, ref))
+    lib_err = max(float((x.double() - r).abs().max()) for x, r in zip(lib, ref)) / scale
+    return dict(
+        f64_rel_err=err64, f32_rel_err=abs32 / scale, f32_abs_err=abs32, library_rel_err=lib_err,
+        ms=_cuda_ms(lambda: kernel(*args32)), plain_ms=_cuda_ms(lambda: plain(*args32)),
+        library_ms=_cuda_ms(lambda: library(*args32)),
+        ok=err64 < F64_KERNEL_TOL and abs32 / scale < F32_KERNEL_TOL,
+    )
+
+
+def _zsweep_record(name, replaces, res, bound_ms, bound_by, source="l3ster_tpu_torch/csrc/zsweep.cu") -> dict:
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces, launches=None,
+        max_abs_err=res["f32_abs_err"], ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=res["library_ms"],
+    )
+
+
+def phase_kernels(lp) -> tuple[dict, dict]:
+    """The z-sweep against its plain version at the bench shapes: the constant
+    modes (diag, the bench's, and full), then the variable mode with the
+    K = 15 planes of the var bench kernel (full geometry, the var path's, and
+    diag) and its "zc" layout; returns the records of B1 const and B1 var."""
+    import torch
+
+    from l3ster_tpu_torch.ops.zsweep import fused_z_sweep, fused_z_sweep_plain
+
+    inp = _bench_kernel_inputs(lp, seed=0)
+    A, nz = inp["A"], inp["nz"]
+    records = {}
+    for var, mode, layout in (
+        (False, "diag", "cz"), (False, "full", "cz"), (True, "full", "cz"), (True, "diag", "cz"), (True, "full", "zc"),
+    ):
+        args = {}
         for dt in (torch.float64, torch.float32):
-            dev = {k: torch.as_tensor(v, dtype=dt, device="cuda") for k, v in host.items()}
-            b = [dev["b"][i] for i in range(3)]
-            geom = (
-                ("diag", dev["jx"], dev["jy"], dev["jz"], dev["wyx"], dev["wz"])
-                if mode == "diag" else ("full", dev["ji"], dev["w"])
-            )
-            tabs = zsweep_tables(Ng.T, Dg.T, dt, "cuda")
-            out[dt] = (b, geom, tabs, fused_z_sweep(A, *b, geom, tabs))
-        b64, g64, t64, k64 = out[torch.float64]
-        ref = fused_z_sweep_plain(A, *b64, g64, t64.NzT, t64.DzT)
-        torch.cuda.synchronize()
-        scale = max(float(r.abs().max()) for r in ref)
-        err64 = max(float((k - r).abs().max()) for k, r in zip(k64, ref)) / scale
-        b32, g32, t32, k32 = out[torch.float32]
-        abs32 = max(float((k.double() - r).abs().max()) for k, r in zip(k32, ref))
-        err32 = abs32 / scale
-        ok = err64 < F64_KERNEL_TOL and err32 < F32_KERNEL_TOL
-        ms = _cuda_ms(lambda: fused_z_sweep(A, *b32, g32, t32))
-        plain_ms = _cuda_ms(lambda: fused_z_sweep_plain(A, *b32, g32, t32.NzT, t32.DzT))
-        lib = _library_zsweep(A, *b32, g32, t32.NzT, t32.DzT)
-        lib_err = max(float((x.double() - r).abs().max()) for x, r in zip(lib, ref)) / scale
-        library_ms = _cuda_ms(lambda: _library_zsweep(A, *b32, g32, t32.NzT, t32.DzT))
-        # least work the function needs on these inputs: each input read once,
-        # each output written once; the arithmetic of the nonzero table band
-        band = t32.band.cpu().numpy()
-        zlo, zhi, slo, shi = np.split(band, [S, 2 * S, 2 * S + n1z])
-        nnz = int((A != 0).sum())
-        geo_flops_per_u = 6 if mode == "diag" else 30
-        flops = (
-            8 * c * RQ * int((zhi - zlo + 1).sum())  # z interpolation: 4 FMAs per band entry
-            + 8 * c * RQ * int((shi - slo + 1).sum())  # z transpose: 4 FMAs per band entry
-            + S * RQ * (4 * nnz + 7 + 1 + geo_flops_per_u * c)  # per-QP algebra
-        )
-        geo = sum(x.numel() for x in g32[1:])
-        nbytes = 4 * (6 * c * n1z * RQ + geo + 2 * n1z * S) + 4 * band.size
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+            *xs, A_nz = _bench_args(inp, dt, mode, layout)
+            args[dt] = (*xs, (nz, A_nz, 7) if var else None)
+        A_c = None if var else A
+
+        def kern(b, bdy, bdx, geom, tabs, v, layout=layout, A_c=A_c):
+            return fused_z_sweep(A_c, b, bdy, bdx, geom, tabs, var=v, layout=layout)
+
+        def plain(b, bdy, bdx, geom, tabs, v, layout=layout, A_c=A_c):
+            return fused_z_sweep_plain(A_c, b, bdy, bdx, geom, tabs.NzT, tabs.DzT, var=v, layout=layout)
+
+        def lib(b, bdy, bdx, geom, tabs, v, layout=layout, A_c=A_c):
+            if layout == "cz":
+                return _library_zsweep(A_c, b, bdy, bdx, geom, tabs.NzT, tabs.DzT, var=v)
+            t = (x.transpose(0, 1) for x in (b, bdy, bdx))
+            return tuple(x.transpose(0, 1) for x in _library_zsweep(A_c, *t, geom, tabs.NzT, tabs.DzT, var=v))
+
+        res = _compare_call(kern, plain, lib, args[torch.float64], args[torch.float32])
+        K, nnz = (len(nz), len(nz)) if var else (0, int((A != 0).sum()))
+        bound_ms, bound_by, nbytes, flops = _zsweep_bound(inp, args[torch.float32][4], mode, K, nnz)
+        name = "zsweep_var" if var else "zsweep"
         _say(
-            "kernel_vs_plain", kernel="zsweep", mode=mode, shape=[c, n1z, S, RQ],
-            f64_rel_err=err64, f64_tol=F64_KERNEL_TOL, f32_rel_err=err32, f32_abs_err=abs32,
-            f32_tol=F32_KERNEL_TOL, library_rel_err=lib_err, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations", ok=ok,
+            "kernel_vs_plain", kernel=name, mode=mode, layout=layout, planes=K,
+            shape=[inp["c"], inp["n1z"], inp["S"], inp["RQ"]], f64_tol=F64_KERNEL_TOL,
+            f32_tol=F32_KERNEL_TOL, bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by, **res,
         )
-        if not ok:
-            raise SystemExit(f"chip_smoke: z-sweep kernel disagrees with its plain version ({mode})")
-        if mode == "diag":  # the main path's mode
-            record = dict(
-                name="zsweep", route="cuda", source="l3ster_tpu_torch/csrc/zsweep.cu",
-                replaces="l3ster_tpu/ops/pallas_zsweep2.py:402", launches=None,
-                max_abs_err=abs32, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=library_ms,
-            )
-    return record
+        if not res["ok"]:
+            raise SystemExit(f"chip_smoke: {name} disagrees with its plain version ({mode} {layout})")
+        if name not in records:  # the first mode of each is its path's: const diag, var full
+            records[name] = _zsweep_record(name, "l3ster_tpu/ops/pallas_zsweep2.py:402", res, bound_ms, bound_by)
+        del args
+        torch.cuda.empty_cache()
+    return records["zsweep"], records["zsweep_var"]
 
 
-def phase_main_path(lp, profile: bool) -> dict:
+def phase_kernels_v1(lp) -> dict:
+    """The v1 wrapper (const A, full geometry, (n1z, c, RQ)) at the bench
+    shapes; returns B5's record."""
+    import torch
+
+    from l3ster_tpu_torch.ops import zsweep_v1
+
+    inp = _bench_kernel_inputs(lp, seed=6)
+    A = inp["A"]
+    args = {}
+    for dt in (torch.float64, torch.float32):
+        b, bdy, bdx, (_, ji, w), tabs, _ = _bench_args(inp, dt, "full", "zc")
+        args[dt] = (b, bdy, bdx, ji, w, tabs.NzT, tabs.DzT, tabs)
+
+    def lib(b, bdy, bdx, ji, w, NzT, DzT, tabs):
+        t = (x.transpose(0, 1) for x in (b, bdy, bdx))
+        return tuple(x.transpose(0, 1) for x in _library_zsweep(A, *t, ("full", ji, w), NzT, DzT))
+
+    res = _compare_call(
+        lambda *a: zsweep_v1.fused_z_sweep(A, *a), lambda *a: zsweep_v1.fused_z_sweep_plain(A, *a[:-1]),
+        lib, args[torch.float64], args[torch.float32],
+    )
+    nnz = int((A != 0).sum())
+    bound_ms, bound_by, nbytes, flops = _zsweep_bound(inp, args[torch.float32][-1], "full", 0, nnz)
+    _say(
+        "kernel_vs_plain", kernel="zsweep_v1", mode="full", layout="zc",
+        shape=[inp["n1z"], inp["c"], inp["S"], inp["RQ"]], f64_tol=F64_KERNEL_TOL, f32_tol=F32_KERNEL_TOL,
+        bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by, **res,
+    )
+    if not res["ok"]:
+        raise SystemExit("chip_smoke: the v1 z-sweep disagrees with its plain version")
+    return _zsweep_record(
+        "zsweep_v1", "l3ster_tpu/ops/pallas_zsweep.py:138", res, bound_ms, bound_by,
+        source="l3ster_tpu_torch/csrc/zsweep.cu (ops/zsweep_v1.py)",
+    )
+
+
+def phase_kernels_stages(lp) -> dict:
+    """The stage kernel in the six stage shapes of one x/y-pipeline apply at
+    the bench (single and K-concat forms); returns B4's record, whose times
+    and bound are the sums over the six shapes (one apply's stages)."""
+    import torch
+
+    from l3ster_tpu_torch.ops.stages import kstacked_matmul, kstacked_matmul_plain, stage_tables
+
+    order, ne, q_order = 6, 6, lp.AssemblyOptions().quadrature_order(6)
+    q1 = q_order // 2 + 1
+    n1, Qa, c = ne * order + 1, ne * q1, 4
+    czy, czQ = c * n1 * n1, c * n1 * Qa
+    stages_ = [  # (stage, rows, table kind, K-concat pair)
+        ("x_interp", czy, "ND", False), ("y_interp_ND", czQ, "ND", False), ("y_interp_N", czQ, "N", False),
+        ("y_transpose_NDT", czQ, "NDT", True), ("y_transpose_NT", czQ, "NT", False),
+        ("x_transpose_NDT", czy, "NDT", True),
+    ]
+    rng = np.random.default_rng(7)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, flops=0)
+    max_abs = 0.0
+    for name, M, kind, pair in stages_:
+        T = stage_tables(order, q_order, ne, kind)
+        KT, N = T.shape
+        K1 = KT // 2 if pair else KT
+        host = [rng.normal(size=(M, K1)) for _ in range(2 if pair else 1)]
+        args = {}
+        for dt in (torch.float64, torch.float32):
+            xs = [torch.as_tensor(h, dtype=dt, device="cuda") for h in host]
+            args[dt] = (xs[0], xs[1] if pair else None, torch.as_tensor(T, dtype=dt, device="cuda"))
+
+        def lib(x, x2, Tt, K1=K1):  # cuBLAS: one matmul, or two for the pair
+            out = torch.matmul(x, Tt[:K1])
+            return out if x2 is None else torch.addmm(out, x2, Tt[K1:])
+
+        res = _compare_call(
+            lambda x, x2, Tt, N=N: kstacked_matmul(x, x2, Tt, N),
+            lambda x, x2, Tt, N=N: kstacked_matmul_plain(x, x2, Tt, N), lib,
+            args[torch.float64], args[torch.float32],
+        )
+        nbytes = 4 * (M * KT + KT * N + M * N)
+        flops = 2 * M * int((T != 0).sum())  # the table's nonzero band
+        bound_ms, bound_by = _bound(nbytes, flops)
+        _say(
+            "kernel_vs_plain", kernel="stage_matmul", stage=name, shape=[M, KT, N], pair=pair,
+            f64_tol=F64_KERNEL_TOL, f32_tol=F32_KERNEL_TOL, bytes=nbytes, flops=flops,
+            bound_ms=bound_ms, bound_by=bound_by, **res,
+        )
+        if not res["ok"]:
+            raise SystemExit(f"chip_smoke: the stage kernel disagrees with its plain version ({name})")
+        for k in ("ms", "plain_ms", "library_ms"):
+            tot[k] += res[k]
+        tot["bound_ms"] += bound_ms
+        tot["bytes"] += nbytes
+        tot["flops"] += flops
+        max_abs = max(max_abs, res["f32_abs_err"])
+    bound_by = "bytes" if tot["bytes"] / PEAK_BYTES >= tot["flops"] / PEAK_F32_FLOPS else "operations"
+    _say("kernel_stage_totals", kernel="stage_matmul", stages=len(stages_), **tot)
+    return dict(
+        name="stage_matmul", route="cuda", source="l3ster_tpu_torch/csrc/stage_matmul.cu",
+        replaces="l3ster_tpu/ops/pallas_stages.py:166", launches=None, max_abs_err=max_abs,
+        ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=bound_by,
+        library_ms=tot["library_ms"],
+    )
+
+
+def phase_main_path(lp) -> dict:
     import torch
 
     from l3ster_tpu_torch.ops import zsweep
@@ -370,6 +578,7 @@ def phase_main_path(lp, profile: bool) -> dict:
     finite = bool(torch.isfinite(y32).all())
     del y64
     apply_ms = _cuda_ms(lambda: fn(xl, *consts))
+    busy_ms, top = _profile_apply(lambda x: fn(x, *consts), xl)
     q1 = lp.AssemblyOptions().quadrature_order(6) // 2 + 1
     flops = _flops_per_apply(6, 6**3, 4, 7, q1)
     ok = finite and apply_err < F32_APPLY_TOL and small_err < F64_APPLY_TOL and launches_first > 0
@@ -378,36 +587,15 @@ def phase_main_path(lp, profile: bool) -> dict:
         setup_s=setup_s, zsweep_launches_first_apply=launches_first,
         rel_err_vs_f64_on_card=apply_err, tol=F32_APPLY_TOL, small_f64_rel_err_vs_cpu=small_err,
         small_tol=F64_APPLY_TOL, shape=list(y32.shape), finite=finite, apply_ms=apply_ms,
-        gflops=flops / (apply_ms * 1e-3) / 1e9, flops_per_apply=flops, ok=ok,
+        gflops=flops / (apply_ms * 1e-3) / 1e9, flops_per_apply=flops, device_busy_ms=busy_ms,
+        device_idle_share=1.0 - busy_ms / apply_ms, top_device_ms_per_apply=top, ok=ok,
     )
     if not ok:
         raise SystemExit("chip_smoke: main-path apply failed its checks")
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as tprofile
-
-        n = 10
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn(xl, *consts)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        events = prof.key_averages()
-        print(events.table(sort_by="self_cuda_time_total", row_limit=15), flush=True)
-        # device kernels only: the aten:: rows carry their kernels' time again
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-        _say(
-            "apply_profile", applies=n, wall_ms_per_apply_profiled=wall_ms,
-            device_busy_ms_per_apply=device_ms, apply_ms=apply_ms,
-            device_idle_share=1.0 - device_ms / apply_ms,
-            top_device_ms_per_apply={e.key[:60]: e.self_device_time_total / 1e3 / n for e in top},
-        )
-    return {"system": system, "mesh": mesh}
+    return {"system": system, "mesh": mesh, "xl": xl, "y32": y32, "apply_ms": apply_ms}
 
 
-def phase_solve(lp, state: dict) -> None:
+def phase_solve(lp, state: dict, phase: str = "solve") -> None:
     import torch
 
     from l3ster_tpu_torch.ops import zsweep
@@ -423,14 +611,136 @@ def phase_solve(lp, state: dict) -> None:
     err_T = float(np.abs(X[:, 0] - mesh.node_coords[:, 0]).max())
     err_q = float(max(np.abs(X[:, 1] - 1.0).max(), np.abs(X[:, 2:]).max()))
     _say(
-        "solve", solver="CG+Jacobi", dtype="float32", tol=CG_TOL, max_iters=CG_MAX_ITERS,
+        phase, n_dofs=system.n_dofs, solver="CG+Jacobi", dtype="float32", tol=CG_TOL, max_iters=CG_MAX_ITERS,
         iterations=r.num_iters, achieved_rel_residual=r.tol, converged=r.converged,
         solve_s=solve_s, ms_per_iteration=solve_s * 1e3 / max(r.num_iters, 1),
         max_nodal_err_T_minus_x=err_T, max_nodal_err_q_minus_1_0_0=err_q,
         zsweep_launches=zsweep.launch_count - before,
     )
     if not r.converged:
-        raise SystemExit("chip_smoke: CG + Jacobi did not reach its tolerance")
+        raise SystemExit(f"chip_smoke: CG + Jacobi did not reach its tolerance ({phase})")
+
+
+def phase_switches(lp, state: dict) -> dict:
+    """The bench system (f32) under each of the reference's opt-in lattice
+    pipelines, set in-process before the system is built and unset after:
+    its apply against the default pipeline's, its time and device-busy time,
+    and the launches of its kernels (counts set to 0 just before the system
+    is built, read after its applies).  Returns {kernel name: launches}."""
+    import os
+
+    import torch
+
+    from l3ster_tpu_torch.ops import stages, zsweep, zsweep_v1
+
+    xl, y_default = state["xl"], state["y32"]
+    launches = {}
+    for env, value, kind, variant in (
+        ("L3STER_TPU_ZSWEEP", "v1", "lattice_sf_const", "v1"),
+        ("L3STER_TPU_XY_PALLAS", "1", "lattice_sf_const_diag", "xy"),
+    ):
+        zsweep.launch_count = zsweep_v1.launch_count = stages.launch_count = 0
+        os.environ[env] = value
+        try:
+            _, system = _build_system(lp, 6, 7, torch.float32, "cuda")
+            fn, consts = system.operator_parts(layout="lattice")
+        finally:
+            del os.environ[env]
+        kinds = [d[0] for _, d in system._operators()[1]]
+        y = fn(xl, *consts)
+        torch.cuda.synchronize()
+        err = float((y - y_default).abs().max() / y_default.abs().max())
+        ms = _cuda_ms(lambda: fn(xl, *consts))
+        busy_ms, top = _profile_apply(lambda x: fn(x, *consts), xl)
+        counts = dict(zsweep=zsweep.launch_count, zsweep_v1=zsweep_v1.launch_count, stage_matmul=stages.launch_count)
+        ok = (
+            kinds == [kind] + ["face_banded"] * 4 and system._variant == variant
+            and bool(torch.isfinite(y).all()) and err < F32_APPLY_TOL
+            and (counts["zsweep_v1"] > 0 if variant == "v1" else counts["stage_matmul"] > 0 and counts["zsweep"] > 0)
+        )
+        _say(
+            "bench_apply_opt_in", env=f"{env}={value}", kinds=kinds, variant=system._variant,
+            rel_err_vs_default_apply=err, tol=F32_APPLY_TOL, apply_ms=ms, default_apply_ms=state["apply_ms"],
+            device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / ms, top_device_ms_per_apply=top,
+            launches=counts, ok=ok,
+        )
+        if not ok:
+            raise SystemExit(f"chip_smoke: the bench apply under {env}={value} failed its checks")
+        launches["zsweep_v1" if variant == "v1" else "stage_matmul"] = (
+            counts["zsweep_v1"] if variant == "v1" else counts["stage_matmul"]
+        )
+        del system, fn, consts, y
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_var_path(lp, n_1d: int, phase: str) -> dict:
+    """The variable-coefficient lattice path at p = 6 on (n_1d - 1)^3 hexes:
+    the f32 apply against the same system in f64 on the card (and, at the
+    bench size, a small f64 system on the card against the CPU path), its
+    time, device-busy time, idle share and costliest kernels.  The z-sweep's
+    launch count is set to 0 just before the f32 system is built."""
+    import torch
+
+    from l3ster_tpu_torch.ops import zsweep
+
+    small_err = None
+    if n_1d == 7:
+        _, small_gpu = _build_system(lp, 3, 3, torch.float64, "cuda", _var_diffusion_3d)
+        _, small_cpu = _build_system(lp, 3, 3, torch.float64, "cpu", _var_diffusion_3d)
+        xs = torch.as_tensor(np.random.default_rng(11).normal(size=(small_cpu.n_dofs, 1)))
+        fg, cg = small_gpu.operator_parts(layout="lattice")
+        fc, cc = small_cpu.operator_parts(layout="lattice")
+        yc = fc(small_cpu.to_lattice_layout(xs), *cc)
+        small_err = float((fg(small_gpu.to_lattice_layout(xs.cuda()), *cg).cpu() - yc).abs().max() / yc.abs().max())
+        del small_gpu, small_cpu
+    t0 = time.perf_counter()
+    _, sys64 = _build_system(lp, 6, n_1d, torch.float64, "cuda", _var_diffusion_3d)
+    f64, c64 = sys64.operator_parts(layout="lattice")
+    x64 = torch.as_tensor(np.random.default_rng(12).normal(size=(sys64.n_dofs, 1)), device="cuda")
+    y64 = f64(sys64.to_lattice_layout(x64), *c64)
+    torch.cuda.synchronize()
+    setup64_s = time.perf_counter() - t0
+    del sys64, f64, c64
+    torch.cuda.empty_cache()
+
+    zsweep.launch_count = 0  # the var path starts here
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh, system = _build_system(lp, 6, n_1d, torch.float32, "cuda", _var_diffusion_3d)
+    kinds = [d[0] for _, d in system._operators()[1]]
+    nz = system._operators()[1][0][1][1][0]
+    fn, consts = system.operator_parts(layout="lattice")
+    xl = system.to_lattice_layout(x64.float())
+    y32 = fn(xl, *consts)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches_first = zsweep.launch_count
+    err = float((y32.double() - y64).abs().max() / y64.abs().max())
+    finite = bool(torch.isfinite(y32).all())
+    del y64, x64
+    ms = _cuda_ms(lambda: fn(xl, *consts))
+    busy_ms, top = _profile_apply(lambda x: fn(x, *consts), xl)
+    # the byte bound of this size's z-sweep call: b/a tensors, full geometry
+    # and the K planes, each moved once, in f32
+    n1z, S = 6 * (n_1d - 1) + 1, 12 * (n_1d - 1)
+    zs_bytes = 4 * (6 * 4 * n1z * S * S + (10 + len(nz)) * S**3 + 2 * n1z * S)
+    ok = (
+        kinds == ["lattice_sf_var"] + ["face_banded"] * 4 and len(nz) == 15 and finite
+        and err < F32_APPLY_TOL and (small_err is None or small_err < F64_APPLY_TOL) and launches_first > 0
+    )
+    _say(
+        phase, n_elements=(n_1d - 1) ** 3, order=6, n_dofs=system.n_dofs, kinds=kinds, planes=len(nz),
+        dtype="float32", setup_s=setup_s, f64_setup_s=setup64_s, zsweep_launches_first_apply=launches_first,
+        rel_err_vs_f64_on_card=err, tol=F32_APPLY_TOL, small_f64_rel_err_vs_cpu=small_err,
+        small_tol=F64_APPLY_TOL, finite=finite, apply_ms=ms, device_busy_ms=busy_ms,
+        device_idle_share=1.0 - busy_ms / ms, top_device_ms_per_apply=top,
+        zsweep_var_bytes=zs_bytes, zsweep_var_bound_ms=zs_bytes / PEAK_BYTES * 1e3,
+        peak_device_memory_bytes=torch.cuda.max_memory_allocated(), ok=ok,
+    )
+    if not ok:
+        raise SystemExit(f"chip_smoke: the variable-coefficient apply failed its checks ({phase})")
+    return {"system": system, "mesh": mesh}
 
 
 # ------------------------------------------------------------ unstructured path
@@ -762,21 +1072,36 @@ def main() -> int:
     if "jax" in sys.modules or "l3ster_tpu" in sys.modules:
         raise SystemExit("chip_smoke: the port imported JAX or the JAX package")
     phase_build()
-    record = phase_kernels(lp)
+    record, var_record = phase_kernels(lp)
+    v1_record = phase_kernels_v1(lp)
+    stage_record = phase_kernels_stages(lp)
     records = phase_kernels_unstructured(lp)
-    state = phase_main_path(lp, profile="--profile" in sys.argv)
+    state = phase_main_path(lp)
     phase_solve(lp, state)
     record["launches"] = zsweep.launch_count  # lattice main path: phases 4 and 5
+    launches = phase_switches(lp, state)  # phase 6
+    v1_record["launches"] = launches["zsweep_v1"]
+    stage_record["launches"] = launches["stage_matmul"]
+    del state
+    torch.cuda.empty_cache()
+    state = phase_var_path(lp, 7, "var_apply")
+    phase_solve(lp, state, "var_solve")
+    var_record["launches"] = zsweep.launch_count  # the var path at the bench size
+    del state
+    torch.cuda.empty_cache()
+    state = phase_var_path(lp, 13, "var_apply_12x12x12")
+    phase_solve(lp, state, "var_solve_12x12x12")
     del state
     torch.cuda.empty_cache()
     state = phase_unstructured_main_path(lp)
     phase_unstructured_solve(lp, state)
-    records[0]["launches"] = qp.launch_count  # unstructured main path: phases 6 and 7
+    records[0]["launches"] = qp.launch_count  # unstructured main path: phases 8 and 9
     records[1]["launches"] = sumfact_fused.launch_count
-    for rec in [record] + records:
+    kernels = [record, var_record, v1_record, stage_record] + records
+    for rec in kernels:
         if rec["launches"] <= 0:
             raise SystemExit(f"chip_smoke: the main path never launched the {rec['name']} kernel")
-    print(json.dumps({"kernels": [record] + records}))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps(
         {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}

@@ -2,10 +2,12 @@
 
 Two families of :class:`MatrixFreeSystem` operator contributions are ported:
 
-* the lattice family: a constant-coefficient 3D volume kernel on a
-  structured lattice block runs as global banded sweeps around the fused
-  z-sweep (``ops/lattice_sumfact.py``), and value-only boundary kernels on
-  full lattice sides run as banded face sweeps;
+* the lattice family: a 3D volume kernel on a structured lattice block runs
+  as global banded sweeps around the fused z-sweep
+  (``ops/lattice_sumfact.py``), with its constant A baked into the kernel
+  (``lattice_sf_const[_diag]``) or, when A varies in space, its nonzero
+  (d, i, u) planes streamed per QP (``lattice_sf_var``); value-only boundary
+  kernels on full lattice sides run as banded face sweeps;
 * the gather family, for any mesh: element values are gathered through the
   dof map, a local apply runs per element batch, and ``index_add_`` scatters
   the result.  Constant-coefficient volume kernels take the dense-basis
@@ -16,8 +18,10 @@ Two families of :class:`MatrixFreeSystem` operator contributions are ported:
 The local evaluation strategy follows the reference's ladder, on every
 device: AUTO takes the lattice kinds when the volume block is a lattice,
 else the dense apply at order >= 2.  Variable-coefficient volume kernels on
-the lattice, dense and sum-factorized paths raise ``NotImplementedError``
-and name their ``ROADMAP.md`` entry.
+the dense and sum-factorized paths raise ``NotImplementedError`` and name
+their ``ROADMAP.md`` entry.  The lattice pipeline (``"v2"``, or the
+reference's opt-in ``"v1"`` and ``"xy"``) is read from the environment once,
+when the operator is built (``ops.lattice_sumfact.lattice_variant``).
 
 Strong Dirichlet conditions are imposed **by masking, outside the operator**
 (SPD-preserving): ``y = free * A(free * x) + dir * x`` and
@@ -56,7 +60,7 @@ from .local import (
 
 __all__ = ["MatrixFreeSystem", "make_algebraic_system"]
 
-_LATTICE_KINDS = ("lattice_sf_const", "lattice_sf_const_diag")
+_LATTICE_KINDS = ("lattice_sf_const", "lattice_sf_const_diag", "lattice_sf_var")
 
 
 @dataclass
@@ -228,6 +232,7 @@ class MatrixFreeSystem:
         self._contribs: list[_Contribution] = []
         self._diag = None
         self._ops = None  # (lattice_key, [(contribution, op_data)]) once built
+        self._variant = "v2"  # lattice pipeline, read from the environment with the operator
         self._last_solve_result = None
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
@@ -491,21 +496,46 @@ class MatrixFreeSystem:
             c.block.nodes.shape[1],
         )
 
-    def _geometry_packed(self, c: _Contribution):
+    def _geometry_packed(self, c: _Contribution, with_operators: bool = False):
         """(Ji_t (dim, dim, EQ), w_t (EQ,)) in block element-major order and in
         float64 whatever the system dtype: the separable-geometry check needs
         exact zeros and per-axis constants that float32 rounding would break.
-        Built in element chunks so the (E, Q, dim, dim) intermediates stay bounded."""
+        Built in element chunks so the (E, Q, dim, dim) intermediates stay bounded.
+
+        ``with_operators`` also evaluates the kernel's A at the same points and
+        appends (nz, A_em): the (d, i, u) indices of A's planes that are nonzero
+        somewhere (``np.argwhere`` order, as the reference finds them, in float64;
+        ``((0, 0, 0),)`` when A is zero) and those planes as A_em (EQ, K) in the
+        system dtype.  Only the planes nonzero in a chunk are kept from it."""
         E, Q = c.verts.shape[0], c.tables.n_qp
-        chunk = max(1, (1 << 22) // max(Q, 1))
+        chunk = max(1, (1 << (19 if with_operators else 22)) // max(Q, 1))
         dim = c.tables.dim
-        ji, w = [], []
+        ji, w, pieces, amax = [], [], [], None
         for s in range(0, E, chunk):
             verts = self._tensor(c.verts[s : s + chunk], torch.float64)
             g = element_geometry(c.tables, verts, with_phys_ders=False)
             ji.append(g.jac_inv.reshape(-1, dim, dim))
             w.append(g.weights.reshape(-1))
-        return torch.cat(ji).permute(1, 2, 0), torch.cat(w)
+            if with_operators:
+                A, _ = eval_equation_kernel(c.kernel, g, c.time)
+                shape = A.shape[2:]
+                A = A.reshape(A.shape[0] * A.shape[1], -1)
+                m = A.abs().amax(dim=0).cpu()
+                amax = m if amax is None else torch.maximum(amax, m)
+                sel = torch.nonzero(m > 0).flatten()
+                pieces.append((sel.tolist(), A[:, sel.to(A.device)].to(self.dtype)))
+        Ji_t, w_t = torch.cat(ji).permute(1, 2, 0), torch.cat(w)
+        if not with_operators:
+            return Ji_t, w_t
+        mx = amax.reshape(shape).numpy()
+        nz = tuple(tuple(int(v) for v in ix) for ix in np.argwhere(mx > 0.0)) or ((0, 0, 0),)
+        col = {int(np.ravel_multi_index(ix, mx.shape)): k for k, ix in enumerate(nz)}
+        A_em = self._zeros((w_t.shape[0], len(nz)))
+        off = 0
+        for sel, vals in pieces:
+            A_em[off : off + vals.shape[0], [col[f] for f in sel]] = vals
+            off += vals.shape[0]
+        return Ji_t, w_t, nz, A_em
 
     def _operator_data(self, c: _Contribution):
         """x-independent operator data of one contribution, built on first use."""
@@ -546,6 +576,10 @@ class MatrixFreeSystem:
         return ("sumfact_const", A_const, Ji_t.to(self.dtype).contiguous(), w_t.to(self.dtype), gather)
 
     def _lattice_data(self, c: _Contribution):
+        """("lattice_sf_const_diag", A, plan, jx, jy, jz, wyx, wz),
+        ("lattice_sf_const", A, plan, Ji_l, w_l) or, when the constancy proof
+        fails, ("lattice_sf_var", (nz, n_eq), plan, A_nz (K, EQ), Ji_l, w_l);
+        per-QP tensors in interleaved lattice QP order."""
         from ..ops.lattice_sumfact import lattice_qp_perm
         from ..ops.zsweep import detect_diag_geometry
 
@@ -553,21 +587,27 @@ class MatrixFreeSystem:
         if c.tables.dim != 3:
             raise NotImplementedError("2D lattice apply is not ported (ROADMAP.md queue A4)")
         A_const = _constant_kernel_operators(c.kernel, c.time)
-        if A_const is None:
-            raise NotImplementedError(
-                "variable-coefficient lattice apply (lattice_sf_var) is not ported "
-                "(ROADMAP.md queue B1, var mode)"
-            )
         n1, ne, _, inv = plan
         q1 = c.options.quadrature_order(c.tables.order) // 2 + 1
         perm = torch.as_tensor(lattice_qp_perm(ne, q1, inv), device=self.device)
-        Ji_t, w_t = self._geometry_packed(c)
+        if A_const is None:
+            Ji_t, w_t, nz, A_em = self._geometry_packed(c, with_operators=True)
+        else:
+            Ji_t, w_t = self._geometry_packed(c)
         Ji_l, w_l = Ji_t[:, :, perm], w_t[perm]
+        if A_const is None:
+            # variable coefficients: only the nonzero (d, i, u) planes of A,
+            # streamed per QP through the z-sweep
+            A_nz = A_em[perm].T.contiguous()
+            n_eq = c.kernel.params.n_equations
+            return ("lattice_sf_var", (nz, n_eq), plan, A_nz, Ji_l.to(self.dtype), w_l.to(self.dtype))
         # axis-aligned separable geometry (every generated box mesh): five
-        # per-axis vectors instead of the (3,3,EQ)+(EQ) tensors
-        g = detect_diag_geometry(Ji_l.cpu().numpy(), w_l.cpu().numpy(), ne[2] * q1)
-        if g is not None:
-            return ("lattice_sf_const_diag", A_const, plan) + tuple(self._tensor(v) for v in g[1:])
+        # per-axis vectors instead of the (3,3,EQ)+(EQ) tensors; the v1
+        # z-sweep takes full geometry only, so v1 skips the check
+        if self._variant != "v1":
+            g = detect_diag_geometry(Ji_l.cpu().numpy(), w_l.cpu().numpy(), ne[2] * q1)
+            if g is not None:
+                return ("lattice_sf_const_diag", A_const, plan) + tuple(self._tensor(v) for v in g[1:])
         return ("lattice_sf_const", A_const, plan, Ji_l.to(self.dtype), w_l.to(self.dtype))
 
     def _boundary_data(self, c: _Contribution):
@@ -639,6 +679,9 @@ class MatrixFreeSystem:
         if self._ops is None:
             if self._open or self._diag is None:
                 raise RuntimeError("the operator is available after end_assembly")
+            from ..ops.lattice_sumfact import lattice_variant
+
+            self._variant = lattice_variant()
             ops, keys = [], set()
             for c in self._contribs:
                 d = self._operator_data(c)
@@ -721,14 +764,17 @@ class MatrixFreeSystem:
             n_unk = c.elem_dofs.shape[2]
             q_order = c.options.quadrature_order(c.tables.order)
             if d[0] in _LATTICE_KINDS:
-                A_c, plan = d[1], d[2]
+                A_c, plan, var = d[1], d[2], None
                 key = (tuple(int(a) for a in plan[0]), self.n_dofs // n_unk, n_unk)
-                if d[0] == "lattice_sf_const":
+                if d[0] == "lattice_sf_var":
+                    (nz, n_eq), A_c = d[1], None
+                    var, Ji_l, w_l, geom = (nz, d[3], n_eq), d[4], d[5], None
+                elif d[0] == "lattice_sf_const":
                     Ji_l, w_l, geom = d[3], d[4], None
                 else:
                     Ji_l = w_l = None
                     geom = ("diag",) + tuple(d[3:])
-                if 1 < r_n <= 4:
+                if A_c is not None and 1 < r_n <= 4:
                     # multi-RHS lane stacking: rhs columns ride as extra channels
                     # with a block-diagonal A -- ONE sweep instead of r_n
                     n_eq_c = A_c.shape[1]
@@ -738,7 +784,7 @@ class MatrixFreeSystem:
                     t_st = torch.cat([t_in(key, rr) for rr in range(r_n)], dim=0)
                     yt = local_apply_lattice(
                         A_eff, Ji_l, w_l, c.tables.order, q_order, plan[0], plan[1], t_st,
-                        geom=geom, tensor_io=True,
+                        geom=geom, tensor_io=True, variant=self._variant,
                     )
                     for rr in range(r_n):
                         acc(key, rr, yt[rr * n_unk : (rr + 1) * n_unk])
@@ -746,7 +792,7 @@ class MatrixFreeSystem:
                 for r in range(r_n):
                     yt = local_apply_lattice(
                         A_c, Ji_l, w_l, c.tables.order, q_order, plan[0], plan[1], t_in(key, r),
-                        geom=geom, tensor_io=True,
+                        geom=geom, tensor_io=True, var=var, variant=self._variant,
                     )
                     acc(key, r, yt)
                 continue

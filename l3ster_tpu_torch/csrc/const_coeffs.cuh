@@ -8,10 +8,15 @@
 //   by slot s = d * c + u, for t[s] = sum_e tval[e] * r[teq[e]], e in [slotstart[s], slotstart[s+1]).
 // Every thread of a warp reads the same entry at the same time (a broadcast), and zero
 // coefficients cost nothing, as in the TPU kernels that bake A into the instruction stream.
+// In the variable-coefficient mode of zsweep.cu the tables keep the same (d, i, u) structure
+// and each entry holds k + 1 in place of the value, k being the index of the entry's plane
+// in the streamed A_nz (K, S, RQ) (ops/zsweep.py:plane_table).
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "device_guard.cuh"
 
 #define CA_MAX_ENT 2048
 #define CA_MAX_EQ 64
@@ -24,20 +29,6 @@ __constant__ double ca_rval[CA_MAX_ENT];
 __constant__ int ca_slotstart[CA_MAX_SLOT + 1];
 __constant__ int ca_teq[CA_MAX_ENT];
 __constant__ double ca_tval[CA_MAX_ENT];
-
-// Makes `device` current for the calling thread and restores the previous
-// device on scope exit, as PyTorch's device guard does around an op.
-struct DeviceGuard {
-    int prev = -1;
-    cudaError_t status;
-    explicit DeviceGuard(int device) {
-        status = cudaGetDevice(&prev);
-        if (status == cudaSuccess && prev != device) status = cudaSetDevice(device);
-    }
-    ~DeviceGuard() {
-        if (prev >= 0) cudaSetDevice(prev);
-    }
-};
 
 // t[s] of one QP: the A^T half of the algebra, from r_i held at rs[i * stride].
 template <typename T>

@@ -3,15 +3,16 @@
 Each kernel source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, at first use, into
 ``l3ster_tpu_torch/_build/<name>-<hash>.so``; the hash covers the source and
-the ``csrc/*.cuh`` headers it includes, so an edited source builds anew.  The
-library is loaded with ``ctypes``.  :func:`build` starts one ``nvcc`` per
-missing library, all at once.
+the ``csrc/*.cuh`` headers it includes, directly or not, so an edited source
+builds anew.  The library is loaded with ``ctypes``.  :func:`build` starts one
+``nvcc`` per missing library, all at once.
 
-Every kernel bakes a constant coefficient matrix A (d1, n_eq, c) into
-``__constant__`` memory (``csrc/const_coeffs.cuh``): :func:`coefficient_tables`
-packs its nonzero entries twice, grouped by equation (for ``r = A g``) and by
-(d, u) slot (for ``t = A^T r``), and :func:`upload_coefficients` skips the
-upload when the same A was last uploaded to that device.
+The per-QP kernels (z-sweep, per-QP algebra, fused sum-factorized apply) bake
+a coefficient matrix A (d1, n_eq, c) into ``__constant__`` memory
+(``csrc/const_coeffs.cuh``): :func:`coefficient_tables` packs its nonzero
+entries twice, grouped by equation (for ``r = A g``) and by (d, u) slot (for
+``t = A^T r``), and :func:`upload_coefficients` skips the upload when the same
+A was last uploaded to that device.
 """
 
 from __future__ import annotations
@@ -46,13 +47,18 @@ _libs: dict = {}
 
 
 def _source_digest(name: str) -> str:
-    """Hash of ``csrc/<name>.cu`` and the package headers it includes."""
-    with open(os.path.join(_CSRC, f"{name}.cu"), "rb") as f:
-        src = f.read()
-    h = hashlib.sha1(src)
-    for inc in re.findall(rb'#include "([^"]+)"', src):
-        with open(os.path.join(_CSRC, inc.decode()), "rb") as f:
-            h.update(f.read())
+    """Hash of ``csrc/<name>.cu`` and the package headers it includes, directly or not."""
+    h = hashlib.sha1()
+    todo, seen = [f"{name}.cu"], set()
+    while todo:
+        fname = todo.pop(0)
+        if fname in seen:
+            continue
+        seen.add(fname)
+        with open(os.path.join(_CSRC, fname), "rb") as f:
+            src = f.read()
+        h.update(src)
+        todo += [inc.decode() for inc in re.findall(rb'#include "([^"]+)"', src)]
     return h.hexdigest()[:16]
 
 

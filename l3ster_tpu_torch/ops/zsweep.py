@@ -1,12 +1,14 @@
 """Fused z-sweep of the lattice operator apply: a Hopper CUDA kernel and its plain version.
 
 Port of the Pallas TPU kernel ``l3ster_tpu/ops/pallas_zsweep2.py:fused_z_sweep_v2``
-in its constant-coefficient modes (diagonal or full geometry) and its
-``layout="cz"`` (c, n1z, RQ) tensors.  Per column of the flattened (R, Q)
-QP plane it runs the z interpolation of the post-y-stage tensors, the per-QP
-least-squares algebra with the constant A, and the z transpose, so no
-QP-space tensor reaches device memory (``csrc/zsweep.cu`` has the design
-note).  The variable-coefficient mode stays on ``ROADMAP.md`` (queue B).
+in all its modes: constant A (baked into ``__constant__`` memory) or variable A
+(the nonzero (d, i, u) planes ``A_nz`` (K, S, RQ) streamed from device memory),
+diagonal or full geometry, and the ``layout="cz"`` (c, n1z, RQ) or ``"zc"``
+(n1z, c, RQ) tensors.  Per column of the flattened (R, Q) QP plane it runs
+the z interpolation of the post-y-stage tensors, the per-QP least-squares
+algebra, and the z transpose, so no QP-space tensor reaches device memory
+(``csrc/zsweep.cu`` has the design note).  ``ops/zsweep_v1.py`` serves the
+reference's v1 kernel with the same CUDA kernel.
 
 :func:`fused_z_sweep` is the dispatcher: on a CPU tensor it runs
 :func:`fused_z_sweep_plain` (torch.einsum); on a CUDA tensor it launches the
@@ -30,6 +32,7 @@ __all__ = [
     "detect_diag_geometry",
     "ZSweepTables",
     "zsweep_tables",
+    "plane_table",
     "fused_z_sweep",
     "fused_z_sweep_plain",
 ]
@@ -107,14 +110,48 @@ def zsweep_tables(NzT: np.ndarray, DzT: np.ndarray, dtype, device) -> ZSweepTabl
     )
 
 
-def fused_z_sweep_plain(A_const, b, bdy, bdx, geom: tuple, NzT, DzT):
+def plane_table(nz_idx, n_eq: int, c: int) -> np.ndarray:
+    """(4, n_eq, c) table of the variable mode: entry (d, i, u) holds k + 1 for
+    the k-th nonzero plane ``nz_idx[k] == (d, i, u)`` and 0 elsewhere, so the
+    packed coefficient tables of ``_cuda.coefficient_tables`` carry plane
+    numbers where the constant mode carries values."""
+    P = np.zeros((4, n_eq, c))
+    for k, (d, i, u) in enumerate(nz_idx):
+        if not (0 <= d < 4 and 0 <= i < n_eq and 0 <= u < c) or P[d, i, u]:
+            raise ValueError(f"plane {k} = {(d, i, u)} is out of range or repeated")
+        P[d, i, u] = k + 1
+    return P
+
+
+def _qp_algebra(A_const, var, g, w):
+    """t (4, c, S, RQ) of the per-QP algebra on g (4, c, S, RQ), constant A
+    (4, n_eq, c) or variable ``var = (nz_idx, A_nz (K, S, RQ), n_eq)``."""
+    if var is None:
+        A = torch.as_tensor(np.asarray(A_const, np.float64), dtype=g.dtype, device=g.device)
+        r = torch.einsum("diu,dusq->isq", A, g) * w
+        return torch.einsum("diu,isq->dusq", A, r)
+    nz_idx, A_nz, n_eq = var
+    c = g.shape[1]
+    d, i, u = (torch.as_tensor([ix[j] for ix in nz_idx], device=g.device) for j in range(3))
+    prod = A_nz * g[d, u]  # (K, S, RQ)
+    r = torch.zeros((n_eq,) + prod.shape[1:], dtype=g.dtype, device=g.device).index_add_(0, i, prod) * w
+    t = torch.zeros((4 * c,) + prod.shape[1:], dtype=g.dtype, device=g.device)
+    return t.index_add_(0, d * c + u, A_nz * r[i]).reshape((4, c) + prod.shape[1:])
+
+
+def fused_z_sweep_plain(A_const, b, bdy, bdx, geom: tuple, NzT, DzT, var=None, layout: str = "cz"):
     """Plain torch version of the fused z-sweep; returns (a, ady, adx).
 
-    A_const (4, n_eq, c) numpy; b, bdy, bdx (c, n1z, RQ); NzT, DzT (n1z, S)
+    A_const (4, n_eq, c) numpy, or None with ``var = (nz_idx, A_nz (K, S, RQ),
+    n_eq)``: the nonzero (d, i, u) planes of a variable A; b, bdy, bdx
+    (c, n1z, RQ), or (n1z, c, RQ) with ``layout="zc"``; NzT, DzT (n1z, S)
     tensors; geom ("diag", jx (1,RQ), jy (1,RQ), jz (S,1), wyx (1,RQ),
     wz (S,1)) or ("full", ji (9,S,RQ), w (S,RQ)) with ji plane j*3+i = Ji[j, i].
     """
-    A = torch.as_tensor(np.asarray(A_const, np.float64), dtype=b.dtype, device=b.device)
+    if layout == "zc":
+        b, bdy, bdx = (x.transpose(0, 1) for x in (b, bdy, bdx))
+    elif layout != "cz":
+        raise ValueError(f"unknown layout {layout!r}")
     v = torch.einsum("czq,zs->csq", b, NzT)
     dz = torch.einsum("czq,zs->csq", b, DzT)
     dy = torch.einsum("czq,zs->csq", bdy, NzT)
@@ -127,8 +164,7 @@ def fused_z_sweep_plain(A_const, b, bdy, bdx, geom: tuple, NzT, DzT):
         _, ji, w = geom
         rd = (dx, dy, dz)
         g = torch.stack([v] + [sum(ji[j * 3 + i] * rd[j] for j in range(3)) for i in range(3)])
-    r = torch.einsum("diu,dusq->isq", A, g) * w
-    t = torch.einsum("diu,isq->dusq", A, r)
+    t = _qp_algebra(A_const, var, g, w)
     if geom[0] == "diag":
         tx, ty, tz = jx * t[1], jy * t[2], jz * t[3]
     else:
@@ -136,17 +172,20 @@ def fused_z_sweep_plain(A_const, b, bdy, bdx, geom: tuple, NzT, DzT):
     a = torch.einsum("csq,zs->czq", t[0], NzT) + torch.einsum("csq,zs->czq", tz, DzT)
     ady = torch.einsum("csq,zs->czq", ty, NzT)
     adx = torch.einsum("csq,zs->czq", tx, NzT)
+    if layout == "zc":
+        return tuple(x.transpose(0, 1).contiguous() for x in (a, ady, adx))
     return a, ady, adx
 
 
-def fused_z_sweep(A_const, b, bdy, bdx, geom: tuple, tabs: ZSweepTables):
+def fused_z_sweep(A_const, b, bdy, bdx, geom: tuple, tabs: ZSweepTables, var=None, layout: str = "cz"):
     """(a, ady, adx) of the fused z-sweep: the CUDA kernel for CUDA tensors,
     :func:`fused_z_sweep_plain` for CPU tensors."""
+    global launch_count
     if b.device.type == "cpu":
-        return fused_z_sweep_plain(A_const, b, bdy, bdx, geom, tabs.NzT, tabs.DzT)
-    if b.device.type != "cuda":
-        raise ValueError(f"fused_z_sweep runs on CPU or CUDA tensors, got {b.device}")
-    return _launch(A_const, b, bdy, bdx, geom, tabs)
+        return fused_z_sweep_plain(A_const, b, bdy, bdx, geom, tabs.NzT, tabs.DzT, var, layout)
+    out = launch(A_const, b, bdy, bdx, geom, tabs, var, layout)
+    launch_count += 1
+    return out
 
 
 # ---------------------------------------------------------------------- build
@@ -157,7 +196,7 @@ def _declare(lib) -> None:
     declare_coefficients(lib, "zsweep")
     for name in ("zsweep_f32", "zsweep_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 14 + [ci] * 9 + [vp]
+        fn.argtypes = [vp] * 15 + [ci] * 12 + [vp]
         fn.restype = ci
 
 
@@ -166,7 +205,8 @@ def _library():
 
 
 def _tile_columns(c: int, n1z: int, S: int, itemsize: int) -> tuple[int, int]:
-    """(TQ, shared bytes): the widest column tile whose shared memory fits."""
+    """(TQ, shared bytes): the widest column tile whose shared memory fits.
+    A variable A is read from device memory, so it takes no shared memory."""
     for tq in (32, 16, 8, 4, 2, 1):
         smem = (2 * n1z * S + 8 * c * S * tq) * itemsize + (2 * S + 2 * n1z) * 4
         if smem <= _SMEM_LIMIT:
@@ -177,14 +217,33 @@ def _tile_columns(c: int, n1z: int, S: int, itemsize: int) -> tuple[int, int]:
     )
 
 
-def _launch(A_const, b, bdy, bdx, geom, tabs: ZSweepTables):
-    global launch_count
+def launch(A_const, b, bdy, bdx, geom, tabs: ZSweepTables, var=None, layout: str = "cz"):
+    """Launch the CUDA kernel on CUDA tensors (no launch count: each public
+    wrapper counts its own launches); raises on what the kernel does not take."""
+    if b.device.type != "cuda":
+        raise ValueError(f"the z-sweep kernel runs on CUDA tensors, got {b.device}")
     lib = _library()
-    A = np.ascontiguousarray(A_const, dtype=np.float64)
-    c, n1z, RQ = b.shape
+    if layout == "cz":
+        c, n1z, RQ = b.shape
+        cs, zs = n1z * RQ, RQ
+    elif layout == "zc":
+        n1z, c, RQ = b.shape
+        cs, zs = RQ, c * RQ
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
     S = tabs.NzT.shape[1]
-    if A.ndim != 3 or A.shape[0] != 4 or A.shape[2] != c:
-        raise ValueError(f"A_const must be (4, n_eq, {c}), got {A.shape}")
+    if var is None:
+        A = np.ascontiguousarray(A_const, dtype=np.float64)
+        if A.ndim != 3 or A.shape[0] != 4 or A.shape[2] != c:
+            raise ValueError(f"A_const must be (4, n_eq, {c}), got {A.shape}")
+        Anz = None
+    else:
+        if A_const is not None:
+            raise ValueError("give either a constant A or var, not both")
+        nz_idx, Anz, n_eq_v = var
+        A = plane_table(nz_idx, n_eq_v, c)
+        if tuple(Anz.shape) != (len(nz_idx), S, RQ):
+            raise ValueError(f"A_nz must be ({len(nz_idx)}, {S}, {RQ}), got {tuple(Anz.shape)}")
     if b.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"fused z-sweep runs in float32 or float64, got {b.dtype}")
     diag = geom[0] == "diag"
@@ -196,7 +255,7 @@ def _launch(A_const, b, bdy, bdx, geom, tabs: ZSweepTables):
         _, ji, w = geom
         g = [ji, w]
         sizes = [9 * S * RQ, S * RQ]
-    ins = [b, bdy, bdx, tabs.NzT, tabs.DzT] + g
+    ins = [b, bdy, bdx, tabs.NzT, tabs.DzT] + g + ([] if Anz is None else [Anz])
     for x in ins:
         if x.device != b.device or x.dtype != b.dtype:
             raise ValueError("fused z-sweep inputs must share one device and dtype")
@@ -209,17 +268,17 @@ def _launch(A_const, b, bdy, bdx, geom, tabs: ZSweepTables):
     tq, smem = _tile_columns(c, n1z, S, b.element_size())
     b, bdy, bdx = b.contiguous(), bdy.contiguous(), bdx.contiguous()
     g = [x.contiguous() for x in g] + [None] * (5 - len(g))
+    Anz = None if Anz is None else Anz.contiguous()
     a, ady, adx = (torch.empty_like(b) for _ in range(3))
     dev, stream = device_and_stream(b)
     upload_coefficients(lib, "zsweep", A, dev, stream, _uploaded)
     fn = lib.zsweep_f32 if b.dtype == torch.float32 else lib.zsweep_f64
-    ptr = [None if x is None else x.data_ptr() for x in [b, bdy, bdx] + g]
+    ptr = [None if x is None else x.data_ptr() for x in [b, bdy, bdx] + g + [Anz]]
     rc = fn(
         *ptr, tabs.NzT.data_ptr(), tabs.DzT.data_ptr(), tabs.band.data_ptr(),
         a.data_ptr(), ady.data_ptr(), adx.data_ptr(),
-        c, n1z, S, RQ, n_eq, int(diag), tq, smem, dev, stream,
+        c, n1z, S, RQ, n_eq, int(diag), int(var is not None), tq, smem, cs, zs, dev, stream,
     )
     if rc != 0:
         raise RuntimeError(f"z-sweep kernel launch failed: CUDA error {rc}")
-    launch_count += 1
     return a, ady, adx

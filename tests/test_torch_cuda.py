@@ -197,3 +197,137 @@ def test_cylinder_system_cuda_matches_cpu(cuda, strategy, tol):
     assert _rel(y, cpu.operator()(x)) < tol
     assert _rel(gpu.diagonal().cpu(), cpu.diagonal()) < 1e-11
     assert _rel(gpu.dirichlet_values.cpu(), cpu.dirichlet_values) < 1e-14
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["cz", "zc"])
+@pytest.mark.parametrize("mode", ["diag", "full"])
+@pytest.mark.parametrize("p,ne,qo", [(2, 3, 4), (4, 2, 10)])
+def test_fused_z_sweep_var_kernel_matches_plain(cuda, p, ne, qo, mode, layout):
+    """The variable-coefficient mode (streamed nonzero planes) and both
+    layouts against the plain version (f64 on the card)."""
+    q1 = qo // 2 + 1
+    S = R = Q = ne * q1
+    n1z, RQ, c = ne * p + 1, R * Q, 4
+    rng = np.random.default_rng(p + 7)
+    mask = rng.uniform(size=(4, 7, c)) > 0.6
+    nz = tuple(tuple(int(v) for v in ix) for ix in np.argwhere(mask))
+    shape = (c, n1z, RQ) if layout == "cz" else (n1z, c, RQ)
+    b64 = [torch.as_tensor(rng.normal(size=shape), device=cuda) for _ in range(3)]
+    A_nz = torch.as_tensor(rng.normal(size=(len(nz), S, RQ)), device=cuda)
+    if mode == "diag":
+        g = ("diag",) + tuple(
+            torch.as_tensor(rng.uniform(0.5, 1.5, sh), device=cuda)
+            for sh in [(1, RQ), (1, RQ), (S, 1), (1, RQ), (S, 1)]
+        )
+    else:
+        Ji = rng.normal(size=(9, S, RQ)) * 0.1 + np.eye(3).reshape(9, 1, 1)
+        g = ("full", torch.as_tensor(Ji, device=cuda), torch.as_tensor(rng.uniform(0.5, 1.0, (S, RQ)), device=cuda))
+    Ng, Dg = banded_tables(p, qo, ne)
+    t64 = zsweep_tables(Ng.T, Dg.T, torch.float64, cuda)
+    ref = fused_z_sweep_plain(None, *b64, g, t64.NzT, t64.DzT, var=(nz, A_nz, 7), layout=layout)
+    for dt, tol in TOLS:
+        got = fused_z_sweep(
+            None, *(x.to(dt) for x in b64), (g[0],) + tuple(x.to(dt) for x in g[1:]),
+            zsweep_tables(Ng.T, Dg.T, dt, cuda), var=(nz, A_nz.to(dt), 7), layout=layout,
+        )
+        torch.cuda.synchronize()
+        for x_got, x_ref in zip(got, ref):
+            assert tuple(x_got.shape) == shape
+            assert _rel(x_got, x_ref) < tol, (dt, mode, layout)
+
+
+@pytest.mark.cuda
+def test_zsweep_v1_kernel_matches_plain(cuda):
+    """The v1 wrapper (const A, full geometry, (n1z, c, RQ)) counts its own launches."""
+    from l3ster_tpu_torch.ops import zsweep, zsweep_v1
+
+    p, ne, qo = 3, 2, 8
+    q1 = qo // 2 + 1
+    S = R = Q = ne * q1
+    n1z, RQ = ne * p + 1, R * Q
+    rng = np.random.default_rng(21)
+    A = _sparse_A(rng, 4, 7, 4)
+    Ng, Dg = banded_tables(p, qo, ne)
+    host = [rng.normal(size=(n1z, 4, RQ)) for _ in range(3)]
+    host += [rng.normal(size=(9, S, RQ)) * 0.1 + np.eye(3).reshape(9, 1, 1), rng.uniform(0.5, 1.0, (S, RQ))]
+    host += [np.ascontiguousarray(Ng.T), np.ascontiguousarray(Dg.T)]
+    ref = zsweep_v1.fused_z_sweep_plain(A, *(torch.as_tensor(x, device=cuda) for x in host))
+    for dt, tol in TOLS:
+        before = (zsweep_v1.launch_count, zsweep.launch_count)
+        got = zsweep_v1.fused_z_sweep(A, *(torch.as_tensor(x, dtype=dt, device=cuda) for x in host))
+        torch.cuda.synchronize()
+        assert (zsweep_v1.launch_count, zsweep.launch_count) == (before[0] + 1, before[1])
+        for x_got, x_ref in zip(got, ref):
+            assert _rel(x_got, x_ref) < tol, dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["single", "pair"])
+def test_stage_kernel_matches_plain(cuda, form):
+    """The stage kernel with ragged row and column tiles, in both forms."""
+    from l3ster_tpu_torch.ops.stages import kstacked_matmul, kstacked_matmul_plain, stage_tables
+
+    rng = np.random.default_rng(8)
+    M = 1000
+    T = stage_tables(6, 22, 3, "ND" if form == "single" else "NDT")
+    K = T.shape[0] if form == "single" else T.shape[0] // 2
+    x = torch.as_tensor(rng.normal(size=(M, K)), device=cuda)
+    x2 = None if form == "single" else torch.as_tensor(rng.normal(size=(M, K)), device=cuda)
+    Tt = torch.as_tensor(T, device=cuda)
+    ref = kstacked_matmul_plain(x, x2, Tt, T.shape[1])
+    for dt, tol in TOLS:
+        got = kstacked_matmul(x.to(dt), None if x2 is None else x2.to(dt), Tt.to(dt), T.shape[1])
+        torch.cuda.synchronize()
+        assert tuple(got.shape) == (M, T.shape[1])
+        assert _rel(got, ref) < tol, dt
+
+
+def _var_diffusion(inp, out):
+    """The bench kernel with k(x, y) = 1 + x*y on its conservation row 0."""
+    _diffusion_3d(inp, out)
+    ops, _ = out
+    k = 1.0 + inp.point.x * inp.point.y
+    ops[1][0, 1] = ops[2][0, 2] = ops[3][0, 3] = -k
+
+
+def _box_system(kernel, device, order=3):
+    mesh = lp.generate_mesh(lp.make_cube_mesh(np.linspace(0.0, 1.0, 3)), order=order)
+    problem = lp.ProblemDefinition(4, [0])
+    bcs = lp.BCDefinition(problem)
+    bcs.define_dirichlet([5, 6], [0])
+    params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
+    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=torch.float64, device=device)
+    kdir = lp.wrap_boundary_residual_kernel(lambda i, o: o.__setitem__(0, i.point.x), lp.KernelParams(3, 1))
+    system.set_dirichlet_bc_values(kdir, [5, 6], [0])
+    system.begin_assembly()
+    system.assemble_problem(lp.wrap_domain_equation_kernel(kernel, lp.KernelParams(3, 7, 4)), [0])
+    system.assemble_problem(lp.wrap_boundary_equation_kernel(_adiabatic_3d, lp.KernelParams(3, 1, 4)), [1, 2, 3, 4])
+    system.end_assembly()
+    return system
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", [None, "L3STER_TPU_ZSWEEP=v1", "L3STER_TPU_XY_PALLAS=1"])
+def test_box_systems_cuda_match_cpu(cuda, monkeypatch, env):
+    """The variable-coefficient box system (lattice_sf_var), and the constant
+    one under each opt-in pipeline, on the card against the CPU path, f64."""
+    from l3ster_tpu_torch.ops import stages, zsweep, zsweep_v1
+
+    kernel = _var_diffusion if env is None else _diffusion_3d
+    if env is not None:
+        monkeypatch.setenv(*env.split("="))
+    gpu, cpu = _box_system(kernel, cuda), _box_system(kernel, "cpu")
+    x = torch.as_tensor(np.random.default_rng(9).normal(size=(cpu.n_dofs, 1)))
+    before = (zsweep.launch_count, zsweep_v1.launch_count, stages.launch_count)
+    y = gpu.operator()(x.to(cuda)).cpu()
+    after = (zsweep.launch_count, zsweep_v1.launch_count, stages.launch_count)
+    kind = gpu._operators()[1][0][1][0]
+    if env is None:
+        assert kind == "lattice_sf_var" and after[0] > before[0]
+    elif "ZSWEEP" in env:
+        assert kind == "lattice_sf_const" and after[1] > before[1] and after[0] == before[0]
+    else:
+        assert after[2] > before[2] and after[0] > before[0]
+    assert _rel(y, cpu.operator()(x)) < 1e-11
+    assert _rel(gpu.effective_rhs().cpu(), cpu.effective_rhs()) < 1e-11

@@ -12,6 +12,7 @@ import torch
 
 from l3ster_tpu.ops import lattice_sumfact as jls
 from l3ster_tpu_torch.ops import lattice_sumfact as pls
+from tests.test_torch_system import fast_reference_compiles, jax_run  # noqa: F401 (a fixture)
 
 REL = 1e-11  # max abs error over max |reference|
 
@@ -41,9 +42,9 @@ def test_local_apply_lattice_matches_reference(order, ne, mode):
             rng.uniform(0.5, 1.5, (S, 1)), rng.uniform(0.5, 1.0, (1, R * Q)),
             rng.uniform(0.5, 1.0, (S, 1)),
         )
-        ref = jls.local_apply_lattice(
-            A, None, None, None, order, q_order, n1, ne, jnp.asarray(x),
-            geom=("diag",) + tuple(jnp.asarray(g) for g in geom[1:]),
+        ref = jax_run(
+            lambda x, *g: jls.local_apply_lattice(A, None, None, None, order, q_order, n1, ne, x, geom=("diag",) + g),
+            jnp.asarray(x), *(jnp.asarray(g) for g in geom[1:]),
         )
         got = pls.local_apply_lattice(
             A, None, None, order, q_order, n1, ne, torch.as_tensor(x),
@@ -52,8 +53,9 @@ def test_local_apply_lattice_matches_reference(order, ne, mode):
     else:
         Ji = rng.normal(size=(3, 3, EQ)) * 0.1 + np.eye(3)[:, :, None]
         w = rng.uniform(0.5, 1.0, EQ)
-        ref = jls.local_apply_lattice(
-            A, None, jnp.asarray(Ji), jnp.asarray(w), order, q_order, n1, ne, jnp.asarray(x)
+        ref = jax_run(
+            lambda Ji, w, x: jls.local_apply_lattice(A, None, Ji, w, order, q_order, n1, ne, x),
+            jnp.asarray(Ji), jnp.asarray(w), jnp.asarray(x),
         )
         got = pls.local_apply_lattice(
             A, torch.as_tensor(Ji), torch.as_tensor(w), order, q_order, n1, ne, torch.as_tensor(x)

@@ -2,12 +2,15 @@
 
 3D diffusion (4 unknowns, 7 equations, constant coefficients) on a 2^3-hex
 cube at p = 2 and 3, value-only adiabatic faces on sides 1-4 and Dirichlet T on sides 5-6,
-in f64 on the CPU.  One mesh feeds both packages through
+in f64 on the CPU, also under each of the reference's opt-in lattice pipelines
+(``L3STER_TPU_ZSWEEP=v1``, ``L3STER_TPU_XY_PALLAS=1``).  One mesh feeds both packages through
 ``l3ster_tpu_torch.interop.mesh_from_numpy``.  The reference runs with
 ``LocalEvalStrategy.LATTICE_SF`` forced (its AUTO picks the lattice path
 only on a TPU); the port takes the lattice path by default.  Tolerances are
 the reference's own oracle tolerances (test_lattice_sf.py).
 """
+
+from contextlib import contextmanager
 
 import numpy as np
 import pytest
@@ -72,12 +75,45 @@ def _rel(got, ref) -> float:
     return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
-def _jax_apply(system, x, layout="dof"):
-    """The reference operator, jitted: its eager op-by-op dispatch costs seconds."""
+@contextmanager
+def xla_optimizations(enabled: bool):
+    """XLA compiles with (or without) most of its optimizations inside the block
+    (``jax_disable_most_optimizations``).  The arithmetic is the same either way
+    (no floating-point reassociation at any level); only compile and run times
+    change."""
     import jax
 
+    prev = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", not enabled)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", prev)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fast_reference_compiles():
+    """While a module that drives the reference runs, its programs compile
+    without most optimizations: the reference's eager setup compiles hundreds
+    of small programs, and at these sizes their compile time outweighs what
+    optimizing them saves.  The other port test modules that drive the
+    reference import this fixture (a long iterative solve re-enables them
+    with :func:`xla_optimizations`)."""
+    with xla_optimizations(False):
+        yield
+
+
+def jax_run(fn, *args):
+    """fn(*args) of the reference, jitted: its eager op-by-op dispatch costs seconds."""
+    import jax
+
+    return jax.jit(fn)(*args)
+
+
+def _jax_apply(system, x, layout="dof"):
+    """The reference operator, run through :func:`jax_run`."""
     fn, consts = system.operator_parts(layout=layout)
-    return jax.jit(fn)(x, *consts)
+    return jax_run(fn, x, *consts)
 
 
 def _mesh(order):
@@ -163,3 +199,28 @@ def test_default_device_is_cuda():
     else:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             lp.make_algebraic_system(mesh, problem, None, params)
+
+
+@pytest.mark.parametrize(
+    "env,value,kind",
+    [("L3STER_TPU_ZSWEEP", "v1", "lattice_sf_const"), ("L3STER_TPU_XY_PALLAS", "1", "lattice_sf_const_diag")],
+)
+def test_system_under_switch_matches_default_and_reference(bench_pair, monkeypatch, env, value, kind):
+    """The reference's opt-in lattice pipelines: the switch is read once, when
+    the operator is built, so the apply keeps its pipeline after the variable
+    is unset; it equals the default pipeline's and the reference's (v1 takes
+    full geometry, so its kind is lattice_sf_const)."""
+    mesh, sj, sp = bench_pair
+    monkeypatch.setenv(env, value)
+    s = _build(lp, mesh, _diffusion_3d)
+    fn, consts = s.operator_parts(layout="lattice")
+    monkeypatch.delenv(env)
+    assert [d[0] for _, d in s._operators()[1]] == [kind] + ["face_banded"] * 4
+    assert s._variant == {"v1": "v1", "1": "xy"}[value]
+    x = np.random.default_rng(6).normal(size=(sj.n_dofs, 1))
+    xl = torch.as_tensor(sj.to_lattice_layout(x))
+    y = fn(xl, *consts)
+    fd, cd = sp.operator_parts(layout="lattice")
+    assert _rel(y, fd(xl, *cd)) < REL
+    assert _rel(y, _jax_apply(sj, sj.to_lattice_layout(x), "lattice")) < REL
+    assert _rel(s.effective_rhs(), sj.effective_rhs()) < REL

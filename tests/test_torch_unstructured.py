@@ -18,6 +18,7 @@ import torch
 import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
 from bench import _adiabatic_3d, _diffusion_3d
+from tests.test_torch_system import fast_reference_compiles, jax_run, xla_optimizations  # noqa: F401 (a fixture)
 
 REL = 1e-11  # apply / diagonal / rhs, relative to max |reference| (the reference's oracles)
 
@@ -51,8 +52,10 @@ def _port_mesh(mesh):
     )
 
 
-def build(pkg, mesh, strategy, dtype=torch.float64, device="cpu"):
-    """The cylinder problem in either package; the reference's AUTO maps to DENSE_MXU."""
+def build(pkg, mesh, strategy, dtype=torch.float64, device="cpu", dirichlet_values=True):
+    """The cylinder problem in either package; the reference's AUTO maps to DENSE_MXU.
+    ``dirichlet_values=False`` leaves the Dirichlet values at zero (the values
+    kernel costs the reference seconds; the operator does not read them)."""
     problem = pkg.ProblemDefinition(4, [0])
     bcs = pkg.BCDefinition(problem)
     bcs.define_dirichlet([3, 4, 5], [0])
@@ -64,8 +67,9 @@ def build(pkg, mesh, strategy, dtype=torch.float64, device="cpu"):
         system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
     kd = pkg.wrap_domain_equation_kernel(_diffusion_src, pkg.KernelParams(3, 7, 4))
     kn = pkg.wrap_boundary_equation_kernel(_adiabatic_3d, pkg.KernelParams(3, 1, 4))
-    kdir = pkg.wrap_boundary_residual_kernel(_t_equals_x, pkg.KernelParams(3, 1))
-    system.set_dirichlet_bc_values(kdir, [3, 4, 5], [0])
+    if dirichlet_values:
+        kdir = pkg.wrap_boundary_residual_kernel(_t_equals_x, pkg.KernelParams(3, 1))
+        system.set_dirichlet_bc_values(kdir, [3, 4, 5], [0])
     system.begin_assembly()
     system.assemble_problem(
         kd, [0], options=pkg.AssemblyOptions(eval_strategy=getattr(pkg.LocalEvalStrategy, strategy))
@@ -76,10 +80,8 @@ def build(pkg, mesh, strategy, dtype=torch.float64, device="cpu"):
 
 
 def _jax_apply(system, x):
-    import jax
-
     fn, consts = system.operator_parts()
-    return np.asarray(jax.jit(fn)(x, *consts))
+    return np.asarray(jax_run(fn, x, *consts))
 
 
 @pytest.fixture(scope="module")
@@ -172,7 +174,8 @@ def test_cg_jacobi_solve_matches_reference(sumfact_pair):
     within one, and the same solution."""
     sj, sp = sumfact_pair
     opts = dict(tol=1e-8, max_iters=5000)
-    rj = sj.solve(lt.CG(lt.IterSolverOpts(**opts), precond=lt.Jacobi()))
+    with xla_optimizations(True):  # hundreds of iterations of one compiled loop
+        rj = sj.solve(lt.CG(lt.IterSolverOpts(**opts), precond=lt.Jacobi()))
     rp = sp.solve(lp.CG(lp.IterSolverOpts(**opts), precond=lp.Jacobi()))
     assert rp.converged and not rp.capped and rp.tol <= 1e-8
     assert abs(rp.num_iters - rj.num_iters) <= 1, (rp.num_iters, rj.num_iters)

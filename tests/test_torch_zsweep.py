@@ -15,6 +15,7 @@ from l3ster_tpu.ops.pallas_zsweep2 import detect_diag_geometry as jax_detect
 from l3ster_tpu.ops.pallas_zsweep2 import fused_z_sweep_v2
 from l3ster_tpu_torch.ops.lattice_sumfact import banded_tables
 from l3ster_tpu_torch.ops.zsweep import detect_diag_geometry, fused_z_sweep, zsweep_tables
+from tests.test_torch_system import fast_reference_compiles, jax_run  # noqa: F401 (a fixture)
 
 TOL = 1e-11  # max abs error over max |reference|, f64
 
@@ -52,10 +53,12 @@ def test_fused_z_sweep_plain_matches_pallas(p, ne, qo, mode):
         assert all(np.array_equal(x, y) for x, y in zip(g[1:], gj[1:]))
     else:
         g = ("full", Ji.reshape(9, S, RQ), w.reshape(S, RQ))
-    ref = fused_z_sweep_v2(
-        A, *(jnp.asarray(x) for x in bs),
-        (g[0],) + tuple(jnp.asarray(x) for x in g[1:]),
-        jnp.asarray(Ng.T), jnp.asarray(Dg.T), block=256, interpret=True, layout="cz",
+    ref = jax_run(
+        lambda *x: fused_z_sweep_v2(
+            A, *x[:3], (g[0],) + x[3:], jnp.asarray(Ng.T), jnp.asarray(Dg.T), block=256,
+            interpret=True, host_tables=(Ng.T, Dg.T), layout="cz",
+        ),
+        *(jnp.asarray(x) for x in list(bs) + list(g[1:])),
     )
     got = fused_z_sweep(
         A, *(torch.as_tensor(x) for x in bs),
