@@ -28,12 +28,15 @@ Phases, each reported on its own line:
 2. build of every kernel from the sources in the checkout, one nvcc each,
    all started together;
 3. each kernel against its plain torch version at its main path's shapes,
-   f64 and f32, with CUDA-event times of kernel, plain version and a
-   cuBLAS-matmul chain of the same function (``library_ms``): the z-sweep
-   const (diag, full) and var (full, diag, K = 15 planes) at the bench
-   shapes, its ``"zc"`` layout, the v1 wrapper, the stage kernel in the six
+   f64 and f32, with CUDA-event times on the card (host enqueueing hidden
+   behind a sleep kernel) of kernel, plain version and a cuBLAS-matmul chain
+   of the same function (``library_ms``): the z-sweep const (diag, full) and
+   var (full, diag, K = 15 planes) at the bench shapes, its ``"zc"`` layout,
+   var+full at the 12^3 shapes, the v1 wrapper, the stage kernel in the six
    stage shapes of an x/y-pipeline apply (single and K-concat forms), then
-   the per-QP and fused sum-factorized kernels at the cylinder's shapes;
+   the per-QP and fused sum-factorized kernels at the cylinder's shapes; the
+   redesigned kernels' lines carry their launch shape and resident blocks
+   per SM, and the build phase each kernel's registers and spills;
 4. the lattice main path: the bench system's operator apply (f32) against
    the same system in f64 on the card, and a small system against the CPU
    path; apply time, GFLOP/s, device-busy time and idle share;
@@ -142,20 +145,33 @@ def _say(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def _cuda_ms(fn, reps: int = 20, batch: int = 10, warm: int = 3) -> float:
+def _cuda_ms(fn, reps: int = 20, batch: int = 10, warm: int = 3, queued: bool = False) -> float:
     """Milliseconds per fn() call: the median over reps runs of one CUDA-event
     pair around ``batch`` back-to-back calls, after warm-up.  Back-to-back
     calls let the device run ahead of the host where the host is faster, so
-    this is device time for device-bound calls and host time otherwise."""
+    this is device time for device-bound calls and host time otherwise.
+    ``queued``: the stream first runs a sleep kernel that outlasts the host's
+    enqueueing of the batch (twice its measured time), so the events time the
+    device's work alone: a kernel's time on the card even where its wrapper's
+    host work is longer."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    cycles = 0
+    if queued:
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        cycles = int(2 * (time.perf_counter() - t0) * 2e9) + 1_000_000  # at most 2 GHz
+        torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(cycles)
         start.record()
         for _ in range(batch):
             fn()
@@ -290,19 +306,33 @@ def phase_build() -> None:
     _cuda.load("sumfact_fused", sumfact_fused._declare)
     seconds = round(time.perf_counter() - t0, 3)
     for n in names:
-        log = _cuda.build_logs.get(n, "")
-        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        _say("build", kernel=n, seconds=seconds, library=paths[n], ptxas=ptxas)
+        _say("build", kernel=n, seconds=seconds, library=paths[n], ptxas=_ptxas_summary(_cuda.build_logs.get(n, "")))
 
 
-def _bench_kernel_inputs(lp, seed: int):
-    """Bench shapes (p = 6, 6^3 hexes) and random inputs of the z-sweep: the
-    constant A of the bench kernel, the nonzero planes of its variable form
-    and both geometries, made with numpy from a seed."""
+def _ptxas_summary(log: str) -> list:
+    """One line per compiled kernel from nvcc's -Xptxas=-v report: its
+    (demangled-enough) name, registers, static shared memory and spills."""
+    out, fn, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = ln.split(",", 1)[1].strip()
+        elif "Used" in ln and "registers" in ln and fn is not None:
+            out.append(f"{fn}: {ln.split('Used', 1)[1].strip()}; {spill}")
+            fn, spill = None, ""
+    return out
+
+
+def _bench_kernel_inputs(lp, seed: int, ne: int = 6):
+    """Bench shapes (p = 6, ne^3 hexes: 6^3 the bench, 12^3 the var 12^3 box)
+    and random inputs of the z-sweep: the constant A of the bench kernel, the
+    nonzero planes of its variable form and both geometries, made with numpy
+    from a seed."""
     from l3ster_tpu_torch.algsys.system import _constant_kernel_operators
     from l3ster_tpu_torch.ops.lattice_sumfact import banded_tables
 
-    order, ne, q_order = 6, 6, lp.AssemblyOptions().quadrature_order(6)
+    order, q_order = 6, lp.AssemblyOptions().quadrature_order(6)
     q1 = q_order // 2 + 1
     S = ne * q1
     RQ = S * S
@@ -346,15 +376,15 @@ def _zsweep_bound(inp, tabs, mode: str, K: int, nnz: int) -> tuple[float, str, i
     b/a tensors, the geometry, the tables and K streamed planes each moved
     once; the FMAs of the nonzero table band and of the per-QP algebra."""
     c, n1z, S, RQ = inp["c"], inp["n1z"], inp["S"], inp["RQ"]
-    band = tabs.band.cpu().numpy()
-    zlo, zhi, slo, shi = np.split(band, [S, 2 * S, 2 * S + n1z])
+    lay = tabs.layers
+    band = int((lay[:, 1] * lay[:, 3]).sum())  # nonzero band entries of a table, by column or by row
     geo = (3 * RQ + 2 * S) if mode == "diag" else 10 * S * RQ
     flops = (
-        8 * c * RQ * int((zhi - zlo + 1).sum())  # z interpolation: 4 FMAs per band entry
-        + 8 * c * RQ * int((shi - slo + 1).sum())  # z transpose: 4 FMAs per band entry
+        8 * c * RQ * band  # z interpolation: 4 FMAs per band entry
+        + 8 * c * RQ * band  # z transpose: 4 FMAs per band entry
         + S * RQ * (4 * nnz + 7 + (6 if mode == "diag" else 30) * c)  # per-QP algebra
     )
-    nbytes = 4 * (6 * c * n1z * RQ + geo + K * S * RQ + 2 * n1z * S) + 4 * band.size
+    nbytes = 4 * (6 * c * n1z * RQ + geo + K * S * RQ + tabs.blk.numel()) + 4 * lay.size
     return _bound(nbytes, flops) + (nbytes, flops)
 
 
@@ -374,8 +404,8 @@ def _compare_call(kernel, plain, library, args64, args32) -> dict:
     lib_err = max(float((x.double() - r).abs().max()) for x, r in zip(lib, ref)) / scale
     return dict(
         f64_rel_err=err64, f32_rel_err=abs32 / scale, f32_abs_err=abs32, library_rel_err=lib_err,
-        ms=_cuda_ms(lambda: kernel(*args32)), plain_ms=_cuda_ms(lambda: plain(*args32)),
-        library_ms=_cuda_ms(lambda: library(*args32)),
+        ms=_cuda_ms(lambda: kernel(*args32), queued=True), plain_ms=_cuda_ms(lambda: plain(*args32), queued=True),
+        library_ms=_cuda_ms(lambda: library(*args32), queued=True),
         ok=err64 < F64_KERNEL_TOL and abs32 / scale < F32_KERNEL_TOL,
     )
 
@@ -395,14 +425,15 @@ def phase_kernels(lp) -> tuple[dict, dict]:
     diag) and its "zc" layout; returns the records of B1 const and B1 var."""
     import torch
 
-    from l3ster_tpu_torch.ops.zsweep import fused_z_sweep, fused_z_sweep_plain
+    from l3ster_tpu_torch.ops.zsweep import fused_z_sweep, fused_z_sweep_plain, kernel_occupancy, plane_table
 
-    inp = _bench_kernel_inputs(lp, seed=0)
-    A, nz = inp["A"], inp["nz"]
     records = {}
-    for var, mode, layout in (
-        (False, "diag", "cz"), (False, "full", "cz"), (True, "full", "cz"), (True, "diag", "cz"), (True, "full", "zc"),
+    for var, mode, layout, ne in (
+        (False, "diag", "cz", 6), (False, "full", "cz", 6), (True, "full", "cz", 6), (True, "diag", "cz", 6),
+        (True, "full", "zc", 6), (True, "full", "cz", 12),  # the last: the var 12^3 apply's shapes
     ):
+        inp = _bench_kernel_inputs(lp, seed=0, ne=ne)
+        A, nz = inp["A"], inp["nz"]
         args = {}
         for dt in (torch.float64, torch.float32):
             *xs, A_nz = _bench_args(inp, dt, mode, layout)
@@ -423,18 +454,22 @@ def phase_kernels(lp) -> tuple[dict, dict]:
 
         res = _compare_call(kern, plain, lib, args[torch.float64], args[torch.float32])
         K, nnz = (len(nz), len(nz)) if var else (0, int((A != 0).sum()))
-        bound_ms, bound_by, nbytes, flops = _zsweep_bound(inp, args[torch.float32][4], mode, K, nnz)
+        tabs32 = args[torch.float32][4]
+        bound_ms, bound_by, nbytes, flops = _zsweep_bound(inp, tabs32, mode, K, nnz)
+        A_k = plane_table(nz, 7, inp["c"]) if var else A
+        occ = kernel_occupancy(torch.float32, mode == "diag", A_k, K, tabs32, inp["RQ"])
         name = "zsweep_var" if var else "zsweep"
         _say(
-            "kernel_vs_plain", kernel=name, mode=mode, layout=layout, planes=K,
+            "kernel_vs_plain", kernel=name, mode=mode, layout=layout, planes=K, ne_z=ne,
             shape=[inp["c"], inp["n1z"], inp["S"], inp["RQ"]], f64_tol=F64_KERNEL_TOL,
-            f32_tol=F32_KERNEL_TOL, bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by, **res,
+            f32_tol=F32_KERNEL_TOL, bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / res["ms"], launch_shape=occ, **res,
         )
         if not res["ok"]:
-            raise SystemExit(f"chip_smoke: {name} disagrees with its plain version ({mode} {layout})")
+            raise SystemExit(f"chip_smoke: {name} disagrees with its plain version ({mode} {layout} ne_z={ne})")
         if name not in records:  # the first mode of each is its path's: const diag, var full
             records[name] = _zsweep_record(name, "l3ster_tpu/ops/pallas_zsweep2.py:402", res, bound_ms, bound_by)
-        del args
+        del args, inp
         torch.cuda.empty_cache()
     return records["zsweep"], records["zsweep_var"]
 
@@ -848,6 +883,7 @@ def phase_kernels_unstructured(lp) -> list:
     from l3ster_tpu_torch.algsys.system import _constant_kernel_operators
     from l3ster_tpu_torch.ops.dense_eval import dense_basis_matrix
     from l3ster_tpu_torch.ops.qp import qp_algebra_const, qp_algebra_const_plain
+    from l3ster_tpu_torch.ops import sumfact_fused
     from l3ster_tpu_torch.ops.sumfact_fused import sumfact_const_apply, sumfact_const_apply_plain
 
     kd = lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4))
@@ -901,7 +937,7 @@ def phase_kernels_unstructured(lp) -> list:
             _, lib_err = _errs(lib32(), ref)
             del ref, out
             ok = err64 < F64_KERNEL_TOL and err32 < F32_KERNEL_TOL
-            ms, plain_ms, library_ms = _cuda_ms(kern32), _cuda_ms(plain32), _cuda_ms(lib32)
+            ms, plain_ms, library_ms = (_cuda_ms(f, queued=True) for f in (kern32, plain32, lib32))
             if name == "qp_algebra":
                 G, Ji_t, w = args32[1:]
                 nbytes = 4 * (2 * G.numel() + Ji_t.numel() + w.numel())
@@ -915,11 +951,15 @@ def phase_kernels_unstructured(lp) -> list:
                 shape = [Ed, n1**dim, cd, Q]
                 replaces, src = "l3ster_tpu/ops/pallas_sumfact.py:195", "l3ster_tpu_torch/csrc/sumfact_fused.cu"
             bound_ms, bound_by = _bound(nbytes, flops)
+            occ = None
+            if name == "sumfact_fused":
+                occ = sumfact_fused.kernel_occupancy(torch.float32, A, order, q_order, dim)
             _say(
                 "kernel_vs_plain", kernel=name, dim=dim, shape=shape, f64_rel_err=err64,
                 f64_tol=F64_KERNEL_TOL, f32_rel_err=err32, f32_abs_err=abs32, f32_tol=F32_KERNEL_TOL,
                 library_rel_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by, ok=ok,
+                bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms, launch_shape=occ, ok=ok,
             )
             if not ok:
                 raise SystemExit(f"chip_smoke: {name} kernel disagrees with its plain version (dim {dim})")
@@ -935,7 +975,10 @@ def phase_kernels_unstructured(lp) -> list:
 
 def _profile_apply(fn, x, n: int = 10) -> tuple[float, dict]:
     """(device-busy ms per apply, the 8 costliest device kernels' ms per apply):
-    the CUDA kernels' time summed by torch.profiler."""
+    the CUDA kernels' time summed by torch.profiler.  Also reports, in the
+    second dict under "host", the 6 host-side operations with the most self
+    CPU time per apply (CUDA runtime calls included; the closing device
+    synchronize left out), with their calls per apply."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -943,10 +986,15 @@ def _profile_apply(fn, x, n: int = 10) -> tuple[float, dict]:
         for _ in range(n):
             fn(x)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    return busy, {e.key[:60]: e.self_device_time_total / 1e3 / n for e in top}
+    host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU and e.key != "cudaDeviceSynchronize"]
+    host_top = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+    out = {e.key[:60]: e.self_device_time_total / 1e3 / n for e in top}
+    out["host"] = {f"{e.key[:40]} x{e.count // n}": e.self_cpu_time_total / 1e3 / n for e in host_top}
+    return busy, out
 
 
 def phase_unstructured_main_path(lp) -> dict:

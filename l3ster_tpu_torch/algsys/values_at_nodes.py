@@ -36,12 +36,17 @@ def _scatter_average(node_ids_list, vals_list, n_nodes, n_eq, n_rhs, dtype, devi
 
 
 def compute_boundary_values_at_nodes(
-    kernel, mesh: Mesh, boundary_ids, time=0.0, dtype=torch.float64, device="cpu"
+    kernel, mesh: Mesh, boundary_ids, time=0.0, dtype=torch.float64, device=None
 ):
     """The kernel at the nodes lying on each boundary side.
 
-    Returns (values (n_nodes, n_eq, n_rhs), mask (n_nodes,) bool) on ``device``.
+    Returns (values (n_nodes, n_eq, n_rhs), mask (n_nodes,) bool) on
+    ``device``: the CUDA device unless the caller names one (without CUDA,
+    no device raises; pass ``device="cpu"`` for the CPU).
     """
+    from .system import _resolve_device
+
+    device = _resolve_device(device)
     p = kernel.params
     ids_list, vals_list = [], []
     for bid in boundary_ids:

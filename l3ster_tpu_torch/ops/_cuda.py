@@ -162,7 +162,8 @@ def device_and_stream(x: torch.Tensor) -> tuple[int, int]:
 def upload_coefficients(lib, prefix: str, A: np.ndarray, dev: int, stream: int, uploaded: dict):
     """Upload A's nonzeros to the library's __constant__ memory on device ``dev``
     (stream-ordered before the next launch on ``stream``) unless ``uploaded``
-    records that the same A is already there.  Raises over the kernel's limits."""
+    records that the same A is already there.  Raises over the kernel's limits.
+    Returns the number of A's nonzero entries."""
     A = np.ascontiguousarray(A, dtype=np.float64)
     d1, n_eq, c = A.shape
     tabs = coefficient_tables(A)
@@ -173,12 +174,13 @@ def upload_coefficients(lib, prefix: str, A: np.ndarray, dev: int, stream: int, 
         )
     key = (A.tobytes(), A.shape)
     if uploaded.get(dev) == key:
-        return
+        return n_ent
     ptrs = [t.ctypes.data for t in tabs]
     rc = getattr(lib, f"{prefix}_set_coeffs")(*ptrs, n_ent, n_eq, d1 * c, dev, stream)
     if rc != 0:
         raise RuntimeError(f"{prefix}: coefficient upload failed: CUDA error {rc}")
     uploaded[dev] = key
+    return n_ent
 
 
 def declare_coefficients(lib, prefix: str) -> None:

@@ -7,8 +7,10 @@ diagonal or full geometry, and the ``layout="cz"`` (c, n1z, RQ) or ``"zc"``
 (n1z, c, RQ) tensors.  Per column of the flattened (R, Q) QP plane it runs
 the z interpolation of the post-y-stage tensors, the per-QP least-squares
 algebra, and the z transpose, so no QP-space tensor reaches device memory
-(``csrc/zsweep.cu`` has the design note).  ``ops/zsweep_v1.py`` serves the
-reference's v1 kernel with the same CUDA kernel.
+(``csrc/zsweep.cu`` has the design note).  The kernel takes the z tables
+by element layer (:func:`zsweep_layers`) and its launch shape from
+:func:`launch_shape`.  ``ops/zsweep_v1.py`` serves the reference's v1
+kernel with the same CUDA kernel.
 
 :func:`fused_z_sweep` is the dispatcher: on a CPU tensor it runs
 :func:`fused_z_sweep_plain` (torch.einsum); on a CUDA tensor it launches the
@@ -21,17 +23,20 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from ._cuda import SMEM_LIMIT as _SMEM_LIMIT
-from ._cuda import declare_coefficients, device_and_stream, load, upload_coefficients
+from ._cuda import coefficient_tables, declare_coefficients, device_and_stream, load, upload_coefficients
 
 __all__ = [
     "detect_diag_geometry",
     "ZSweepTables",
+    "zsweep_layers",
     "zsweep_tables",
+    "launch_shape",
     "plane_table",
     "fused_z_sweep",
     "fused_z_sweep_plain",
@@ -82,11 +87,15 @@ def detect_diag_geometry(Ji_l, w_l, S: int, tol: float = 1e-11):
 
 @dataclass(frozen=True)
 class ZSweepTables:
-    """The banded z tables on the device, with the band limits the kernel visits."""
+    """The banded z tables: dense on the device for the plain version, and
+    compact, by element layer, for the kernel (:func:`zsweep_layers`)."""
 
     NzT: torch.Tensor  # (n1z, S)
     DzT: torch.Tensor  # (n1z, S)
-    band: torch.Tensor  # int32 (2S + 2n1z,): zlo[S], zhi[S], slo[n1z], shi[n1z]
+    layers: np.ndarray  # int32 (nL, 4) on the host: s0, nq, z0, nn of each layer
+    lay: torch.Tensor  # the same on the device
+    blk: torch.Tensor  # (2, nL, WQ, WN): each layer's (nq, nn) N block, then D block
+    dims: tuple  # (nL, WQ, WN): layers, and the most QP rows and node rows of one
 
 
 def _band(nz: np.ndarray) -> np.ndarray:
@@ -97,19 +106,61 @@ def _band(nz: np.ndarray) -> np.ndarray:
     return lo, hi
 
 
+def zsweep_layers(NzT: np.ndarray, DzT: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The element-layer form of (n1z, S) z tables: (layers, blk).
+
+    A lattice z table is a run of layers, each a block of nq consecutive
+    columns (QP rows) whose nonzeros lie in nn consecutive node rows, the
+    first node row of each layer being the last of the one before.  Returns
+    ``layers`` int32 (nL, 4) = (s0, nq, z0, nn) and ``blk`` (2, nL, WQ, WN),
+    WQ = max nq and WN = max nn, with ``blk[0, L, j, i] = NzT[z0 + i, s0 + j]``
+    (``blk[1]`` from DzT, zeros past nq and nn).  Raises ValueError on a
+    table without that structure."""
+    NzT, DzT = np.asarray(NzT), np.asarray(DzT)
+    n1z, S = NzT.shape
+    nz = (NzT != 0) | (DzT != 0)
+    lo, hi = _band(nz)
+    if (hi < 0).any():
+        raise ValueError("z tables: a QP row has no nonzero entry")
+    layers, s = [], 0
+    while s < S:
+        e, z0, z1 = s + 1, lo[s], hi[s]
+        while e < S and lo[e] < z1:  # a column that starts below the top row joins the layer
+            z0, z1 = min(z0, lo[e]), max(z1, hi[e])
+            e += 1
+        layers.append((s, e - s, z0, z1 - z0 + 1))
+        s = e
+    for k, (_, _, z0, nn) in enumerate(layers):
+        want = 0 if k == 0 else layers[k - 1][2] + layers[k - 1][3] - 1
+        if z0 != want or nn < 2:
+            raise ValueError(
+                f"z tables have no element-layer structure: layer {k} spans node rows "
+                f"{z0}..{z0 + nn - 1}, expected to start at {want} and span at least 2 rows"
+            )
+    if layers[-1][2] + layers[-1][3] != n1z:
+        raise ValueError("z tables have no element-layer structure: the last node rows are never used")
+    lay = np.asarray(layers, dtype=np.int32)
+    blk = np.zeros((2, len(layers), lay[:, 1].max(), lay[:, 3].max()))
+    for k, (s0, nq, z0, nn) in enumerate(layers):
+        blk[0, k, :nq, :nn] = NzT[z0 : z0 + nn, s0 : s0 + nq].T
+        blk[1, k, :nq, :nn] = DzT[z0 : z0 + nn, s0 : s0 + nq].T
+    return lay, blk
+
+
 def zsweep_tables(NzT: np.ndarray, DzT: np.ndarray, dtype, device) -> ZSweepTables:
     """Device tables for :func:`fused_z_sweep` from host (n1z, S) tables."""
-    nz = (np.asarray(NzT) != 0) | (np.asarray(DzT) != 0)
-    zlo, zhi = _band(nz)
-    slo, shi = _band(nz.T)
-    band = np.concatenate([zlo, zhi, slo, shi]).astype(np.int32)
+    lay, blk = zsweep_layers(NzT, DzT)
     return ZSweepTables(
         torch.as_tensor(np.asarray(NzT), dtype=dtype, device=device).contiguous(),
         torch.as_tensor(np.asarray(DzT), dtype=dtype, device=device).contiguous(),
-        torch.as_tensor(band, device=device),
+        lay,
+        torch.as_tensor(lay, device=device).contiguous(),
+        torch.as_tensor(blk, dtype=dtype, device=device).contiguous(),
+        tuple(int(x) for x in blk.shape[1:]),
     )
 
 
+@lru_cache(maxsize=64)
 def plane_table(nz_idx, n_eq: int, c: int) -> np.ndarray:
     """(4, n_eq, c) table of the variable mode: entry (d, i, u) holds k + 1 for
     the k-th nonzero plane ``nz_idx[k] == (d, i, u)`` and 0 elsewhere, so the
@@ -196,25 +247,67 @@ def _declare(lib) -> None:
     declare_coefficients(lib, "zsweep")
     for name in ("zsweep_f32", "zsweep_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 15 + [ci] * 12 + [vp]
+        fn.argtypes = [vp, vp, ci, vp]
         fn.restype = ci
+    lib.zsweep_occupancy.argtypes = [ci] * 7
+    lib.zsweep_occupancy.restype = ci
 
 
 def _library():
     return load("zsweep", _declare)
 
 
-def _tile_columns(c: int, n1z: int, S: int, itemsize: int) -> tuple[int, int]:
-    """(TQ, shared bytes): the widest column tile whose shared memory fits.
-    A variable A is read from device memory, so it takes no shared memory."""
+MAX_ROWS = 12  # threads along a layer's QP rows (csrc/zsweep.cu: ZS_MAXY)
+# blocks wanted per SM before z is split across blocks: two resident, two waves
+_BLOCKS_PER_SM = 4
+
+
+@lru_cache(maxsize=256)
+def launch_shape(c: int, n_eq: int, K: int, n_ent: int, dims: tuple, RQ: int, itemsize: int, n_sm: int) -> dict:
+    """The kernel's launch shape for layers of ``dims = (nL, WQ, WN)``, K
+    streamed planes (0 for a constant A) and A's ``n_ent`` nonzero entries:
+    ``tq`` columns by ``by`` QP rows of threads, ``chunks`` blocks along z of
+    ``CL`` layers each, and ``smem`` bytes of shared memory (the widest column
+    tile that fits).  z is split only where the column tiles alone would
+    leave the card's ``n_sm`` SMs short of blocks."""
+    nL, WQ, WN = dims
     for tq in (32, 16, 8, 4, 2, 1):
-        smem = (2 * n1z * S + 8 * c * S * tq) * itemsize + (2 * S + 2 * n1z) * 4
+        vals = (
+            2 * (3 * c * WN * tq + 2 * WQ * WN + K * WQ * tq)  # two layer buffers: nodes, tables, planes
+            + 4 * c * WQ * tq  # the QP tile
+            + n_eq * WQ * tq  # w * r
+            + 3 * c * tq  # the carried node row
+            + 2 * n_ent  # A's entries, by equation and by slot
+        )
+        smem = vals * itemsize + 4 * 4 * n_ent  # and their four offsets
         if smem <= _SMEM_LIMIT:
-            return tq, smem
-    raise ValueError(
-        f"fused z-sweep needs {smem} bytes of shared memory for one column "
-        f"(c={c}, n1z={n1z}, S={S}); the limit is {_SMEM_LIMIT}"
-    )
+            break
+    else:
+        raise ValueError(
+            f"fused z-sweep needs {smem} bytes of shared memory for one column "
+            f"(c={c}, n_eq={n_eq}, K={K}, layers of {WQ} x {WN}); the limit is {_SMEM_LIMIT}"
+        )
+    tiles = -(-RQ // tq)
+    want = min(nL, max(1, -(-_BLOCKS_PER_SM * n_sm // tiles)))
+    CL = -(-nL // want)
+    return dict(tq=tq, by=min(WQ, MAX_ROWS), CL=CL, chunks=-(-nL // CL), smem=smem)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(dev: int) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+_edge_rows: dict = {}  # (layers, CL) -> the node rows two chunks share, for the launch
+
+
+def _chunk_edges(tabs: ZSweepTables, CL: int):
+    key = (tabs.layers.tobytes(), CL)
+    rows = _edge_rows.get(key)
+    if rows is None:
+        z = tabs.layers[CL::CL, 2]
+        rows = _edge_rows[key] = (ctypes.c_int * len(z))(*z.tolist())
+    return rows
 
 
 def launch(A_const, b, bdy, bdx, geom, tabs: ZSweepTables, var=None, layout: str = "cz"):
@@ -255,7 +348,7 @@ def launch(A_const, b, bdy, bdx, geom, tabs: ZSweepTables, var=None, layout: str
         _, ji, w = geom
         g = [ji, w]
         sizes = [9 * S * RQ, S * RQ]
-    ins = [b, bdy, bdx, tabs.NzT, tabs.DzT] + g + ([] if Anz is None else [Anz])
+    ins = [b, bdy, bdx, tabs.NzT, tabs.DzT, tabs.blk] + g + ([] if Anz is None else [Anz])
     for x in ins:
         if x.device != b.device or x.dtype != b.dtype:
             raise ValueError("fused z-sweep inputs must share one device and dtype")
@@ -265,20 +358,44 @@ def launch(A_const, b, bdy, bdx, geom, tabs: ZSweepTables, var=None, layout: str
         if x.numel() != n:
             raise ValueError(f"fused z-sweep: geometry tensor of {x.numel()} values, expected {n}")
     n_eq = A.shape[1]
-    tq, smem = _tile_columns(c, n1z, S, b.element_size())
+    dev, stream = device_and_stream(b)
+    K = 0 if Anz is None else Anz.shape[0]
+    n_ent = upload_coefficients(lib, "zsweep", A, dev, stream, _uploaded)
+    sh = launch_shape(c, n_eq, K, n_ent, tabs.dims, RQ, b.element_size(), _sm_count(dev))
     b, bdy, bdx = b.contiguous(), bdy.contiguous(), bdx.contiguous()
     g = [x.contiguous() for x in g] + [None] * (5 - len(g))
     Anz = None if Anz is None else Anz.contiguous()
-    a, ady, adx = (torch.empty_like(b) for _ in range(3))
-    dev, stream = device_and_stream(b)
-    upload_coefficients(lib, "zsweep", A, dev, stream, _uploaded)
+    out = torch.empty((3,) + tuple(b.shape), dtype=b.dtype, device=b.device)
+    a, ady, adx = out.unbind(0)
     fn = lib.zsweep_f32 if b.dtype == torch.float32 else lib.zsweep_f64
-    ptr = [None if x is None else x.data_ptr() for x in [b, bdy, bdx] + g + [Anz]]
-    rc = fn(
-        *ptr, tabs.NzT.data_ptr(), tabs.DzT.data_ptr(), tabs.band.data_ptr(),
-        a.data_ptr(), ady.data_ptr(), adx.data_ptr(),
-        c, n1z, S, RQ, n_eq, int(diag), int(var is not None), tq, smem, cs, zs, dev, stream,
-    )
+    # the node rows two chunks share, which the launch zeroes first: at each, the
+    # rows of all (tensor, channel) as (width, pitch, height) in values
+    edges = _chunk_edges(tabs, sh["CL"]) if sh["chunks"] > 1 else None
+    zero = (RQ, cs, 3 * c) if layout == "cz" else (c * RQ, n1z * c * RQ, 3)
+    ptrs = [None if x is None else x.data_ptr() for x in [b, bdy, bdx] + g + [Anz]]
+    ptrs += [tabs.blk.data_ptr(), tabs.lay.data_ptr(), a.data_ptr(), ady.data_ptr(), adx.data_ptr()]
+    ptrs.append(None if edges is None else ctypes.addressof(edges))
+    ints = [c, S, RQ, n_eq, *tabs.dims, sh["CL"], cs, zs, K, n_ent, int(diag), int(var is not None)]
+    ints += [sh["tq"], sh["by"], sh["chunks"], sh["smem"], *zero]
+    rc = fn((ctypes.c_void_p * 15)(*ptrs), (ctypes.c_int * 21)(*ints), dev, stream)
     if rc != 0:
         raise RuntimeError(f"z-sweep kernel launch failed: CUDA error {rc}")
     return a, ady, adx
+
+
+def kernel_occupancy(dtype, diag: bool, A, K: int, tabs: ZSweepTables, RQ: int) -> dict:
+    """The launch shape of these inputs on the current card (A the constant
+    matrix, or ``plane_table`` of a variable one with its K planes), with the
+    kernel instantiation's resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    dev = torch.cuda.current_device()
+    A = np.ascontiguousarray(A, dtype=np.float64)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n_ent = len(coefficient_tables(A)[3])
+    sh = launch_shape(A.shape[2], A.shape[1], K, n_ent, tabs.dims, RQ, itemsize, _sm_count(dev))
+    blocks = _library().zsweep_occupancy(
+        int(dtype == torch.float64), int(diag), int(K > 0), tabs.dims[2], sh["tq"] * sh["by"], sh["smem"], dev
+    )
+    if blocks < 0:
+        raise RuntimeError(f"z-sweep occupancy query failed: CUDA error {-blocks}")
+    return dict(sh, blocks_per_sm=blocks, warps_per_sm=blocks * sh["tq"] * sh["by"] // 32)

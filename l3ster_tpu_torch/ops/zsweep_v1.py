@@ -29,7 +29,7 @@ def fused_z_sweep(A_const, b, bdy, bdx, ji, w, NzT, DzT, tabs: zsweep.ZSweepTabl
 
     A_const (4, n_eq, c) numpy; b, bdy, bdx (n1z, c, RQ); ji (9, S, RQ) with
     plane j*3+i = Ji[j, i]; w (S, RQ); NzT, DzT (n1z, S) banded z tables.
-    ``tabs`` is their device copy with band limits (``zsweep.zsweep_tables``),
+    ``tabs`` is their device copy with its element layers (``zsweep.zsweep_tables``),
     made once by a caller that applies repeatedly; without it a CUDA launch
     makes one from NzT and DzT."""
     global launch_count

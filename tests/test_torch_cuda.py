@@ -117,23 +117,64 @@ def test_qp_kernel_matches_plain(cuda, dim):
         assert _rel(got.cpu(), ref) < tol, dt
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dim,order", [(2, 2), (2, 3), (3, 2), (3, 3), (3, 4)])
-def test_sumfact_kernel_matches_plain(cuda, dim, order):
-    """The fused sum-factorized kernel against its plain version (f64 on the CPU)."""
-    E, c, n_eq = 9, 4, 7
-    qo = lp.AssemblyOptions().quadrature_order(order)
+def _check_sumfact(cuda, dim, order, qo, E, c, n_eq, seed):
+    """The fused kernel against its plain version (f64 on the CPU), in each
+    dtype whose element fits one block (p = 6 in 3D fits only in f32)."""
+    from l3ster_tpu_torch.ops.sumfact_fused import launch_shape
+
     Q = (qo // 2 + 1) ** dim
-    rng = np.random.default_rng(10 * dim + order)
+    rng = np.random.default_rng(seed)
     A = _sparse_A(rng, dim + 1, n_eq, c)
     ji = torch.as_tensor(rng.normal(size=(E, Q, dim, dim)) * 0.1 + np.eye(dim))
     w = torch.as_tensor(rng.uniform(0.5, 1.0, (E, Q)))
     x = torch.as_tensor(rng.normal(size=(E, (order + 1) ** dim, c)))
     ref = sumfact_const_apply_plain(A, ji, w, order, qo, dim, x)
+    ran = 0
     for dt, tol in TOLS:
+        try:
+            launch_shape(order, qo, dim, c, n_eq, int((A != 0).sum()), torch.empty((), dtype=dt).element_size())
+        except ValueError:
+            continue
         got = sumfact_const_apply(A, ji.to(cuda, dt), w.to(cuda, dt), order, qo, dim, x.to(cuda, dt))
         torch.cuda.synchronize()
         assert _rel(got.cpu(), ref) < tol, dt
+        ran += 1
+    assert ran >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,order", [(2, 2), (2, 3), (3, 2), (3, 3), (3, 4), (3, 5), (3, 6)])
+def test_sumfact_kernel_matches_plain(cuda, dim, order):
+    """The fused sum-factorized kernel against its plain version (f64 on the CPU)."""
+    _check_sumfact(cuda, dim, order, lp.AssemblyOptions().quadrature_order(order), 9, 4, 7, 10 * dim + order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dim,order,qo,E,c,n_eq",
+    [(3, 4, 8, 37, 4, 7), (2, 5, 10, 37, 3, 4), (3, 2, 6, 5, 16, 28), (2, 1, 2, 3, 1, 2), (3, 6, 12, 7, 4, 7)],
+)
+def test_sumfact_kernel_orders_and_channels(cuda, dim, order, qo, E, c, n_eq):
+    """The quadrature order 2p (q1 = p + 1), odd element counts, several
+    channels per group (c = 16) and one channel (c = 1)."""
+    _check_sumfact(cuda, dim, order, qo, E, c, n_eq, 100 + order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dim,order,value_order,derivative_order",
+    [(3, 2, 2, 1), (3, 4, 2, 0), (2, 4, 2, 0), (3, 2, 1, 2), (2, 7, 1, 1), (2, 3, 2, 2)],
+)
+def test_sumfact_kernel_run_time_sized_orders(cuda, dim, order, value_order, derivative_order):
+    """Orders without an unrolled kernel run the run-time-sized one:
+    AssemblyOptions' value_order = 2 (q1 = 3p, and 2p + 1 with
+    derivative_order = 0) and derivative_order = 2 (q1 = 3p - 1), and 2D at
+    p = 7."""
+    from l3ster_tpu_torch.ops.sumfact_fused import launch_shape
+
+    qo = lp.AssemblyOptions(value_order=value_order, derivative_order=derivative_order).quadrature_order(order)
+    assert launch_shape(order, qo, dim, 4, 7, 15, 4)["generic"]
+    _check_sumfact(cuda, dim, order, qo, 11, 4, 7, 200 + order)
 
 
 def _diffusion_3d(inp, out):
@@ -331,3 +372,57 @@ def test_box_systems_cuda_match_cpu(cuda, monkeypatch, env):
         assert after[2] > before[2] and after[0] > before[0]
     assert _rel(y, cpu.operator()(x)) < 1e-11
     assert _rel(gpu.effective_rhs().cpu(), cpu.effective_rhs()) < 1e-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["cz", "zc"])
+@pytest.mark.parametrize("mode", ["const-diag", "var-full", "var-diag"])
+@pytest.mark.parametrize(
+    "p,qo,ne,RQ",
+    [(6, 22, 12, 100), (6, 22, 12, 4100), (6, 22, 1, 300), (3, 8, 1, 77), (2, 4, 2, 50), (8, 30, 3, 90), (9, 18, 2, 40)],
+)
+def test_fused_z_sweep_layer_shapes_match_plain(cuda, p, qo, ne, RQ, mode, layout):
+    """The z-sweep at the 12^3 z-shape (n1z = 73, S = 144) on column counts
+    that are not a multiple of the tile, split along z into one-layer chunks
+    (RQ = 100: every shared node row added atomically) and three-layer chunks
+    (RQ = 4100: rows carried inside a chunk), with one layer (no shared row)
+    and two, and at p = 8 and 9 (layers of more node rows than the kernel
+    holds in registers at once); f64 and f32 against the plain version in f64."""
+    from l3ster_tpu_torch.ops.zsweep import launch_shape, zsweep_layers
+
+    S, n1z, c = ne * (qo // 2 + 1), ne * p + 1, 4
+    rng = np.random.default_rng(RQ + ne)
+    shape = (c, n1z, RQ) if layout == "cz" else (n1z, c, RQ)
+    b64 = [torch.as_tensor(rng.normal(size=shape), device=cuda) for _ in range(3)]
+    if mode.startswith("var"):
+        A = None
+        nz = tuple(tuple(int(v) for v in ix) for ix in np.argwhere(rng.uniform(size=(4, 7, c)) > 0.6))
+        var64 = (nz, torch.as_tensor(rng.normal(size=(len(nz), S, RQ)), device=cuda), 7)
+    else:
+        A, var64 = _sparse_A(rng, 4, 7, c), None
+    if mode.endswith("diag"):
+        g = ("diag",) + tuple(
+            torch.as_tensor(rng.uniform(0.5, 1.5, sh), device=cuda) for sh in [(1, RQ), (1, RQ), (S, 1), (1, RQ), (S, 1)]
+        )
+    else:
+        Ji = rng.normal(size=(9, S, RQ)) * 0.1 + np.eye(3).reshape(9, 1, 1)
+        g = ("full", torch.as_tensor(Ji, device=cuda), torch.as_tensor(rng.uniform(0.5, 1.0, (S, RQ)), device=cuda))
+    Ng, Dg = banded_tables(p, qo, ne)
+    K = 0 if var64 is None else len(var64[0])
+    n_ent = K if var64 is not None else int((A != 0).sum())
+    dims = zsweep_layers(Ng.T, Dg.T)[1].shape[1:]
+    sh = launch_shape(c, 7, K, n_ent, dims, RQ, 8, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    if (p, ne, RQ) == (6, 12, 4100):
+        assert 1 < sh["CL"] < ne  # both the carried and the atomic shared rows
+    t64 = zsweep_tables(Ng.T, Dg.T, torch.float64, cuda)
+    ref = fused_z_sweep_plain(A, *b64, g, t64.NzT, t64.DzT, var=var64, layout=layout)
+    for dt, tol in TOLS:
+        var = None if var64 is None else (var64[0], var64[1].to(dt), 7)
+        got = fused_z_sweep(
+            A, *(x.to(dt) for x in b64), (g[0],) + tuple(x.to(dt) for x in g[1:]),
+            zsweep_tables(Ng.T, Dg.T, dt, cuda), var=var, layout=layout,
+        )
+        torch.cuda.synchronize()
+        for x_got, x_ref in zip(got, ref):
+            assert tuple(x_got.shape) == shape
+            assert _rel(x_got, x_ref) < tol, (dt, mode, layout)

@@ -143,6 +143,25 @@ def test_kernel_dirichlet_values_match_reference(sumfact_pair):
     np.testing.assert_allclose(sp.dirichlet_values[:, 0].numpy(), x_at[order], rtol=0, atol=1e-14)
 
 
+def test_boundary_values_at_nodes_device(meshes, monkeypatch):
+    """compute_boundary_values_at_nodes runs on the card unless told otherwise:
+    without CUDA and without a device it raises; with device="cpu" it gives
+    T = x on exactly the nodes of the three boundaries."""
+    from l3ster_tpu_torch.algsys.values_at_nodes import compute_boundary_values_at_nodes
+
+    mp = meshes[1]
+    kdir = lp.wrap_boundary_residual_kernel(_t_equals_x, lp.KernelParams(3, 1))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compute_boundary_values_at_nodes(kdir, mp, [3, 4, 5])
+    vals, mask = compute_boundary_values_at_nodes(kdir, mp, [3, 4, 5], device="cpu")
+    assert vals.device.type == mask.device.type == "cpu" and tuple(vals.shape) == (mp.n_nodes, 1, 1)
+    on = np.zeros(mp.n_nodes, bool)
+    on[mp.boundary_nodes_of([3, 4, 5])] = True
+    np.testing.assert_array_equal(mask.numpy(), on)
+    np.testing.assert_allclose(vals[:, 0, 0].numpy()[on], mp.node_coords[on, 0], rtol=0, atol=1e-14)
+
+
 @pytest.fixture(scope="module")
 def dense_ref(meshes):
     """The reference's DENSE_MXU system, shared by the AUTO and DENSE_MXU cases."""
