@@ -33,7 +33,8 @@ Phases, each reported on its own line:
    of the same function (``library_ms``): the z-sweep const (diag, full) and
    var (full, diag, K = 15 planes) at the bench shapes, its ``"zc"`` layout,
    var+full at the 12^3 shapes, the v1 wrapper, the stage kernel in the six
-   stage shapes of an x/y-pipeline apply (single and K-concat forms), then
+   stage shapes of an x/y-pipeline apply (single and K-concat forms, each
+   with its band descriptor built before the timed calls) and their sums, then
    the per-QP and fused sum-factorized kernels at the cylinder's shapes; the
    redesigned kernels' lines carry their launch shape and resident blocks
    per SM, and the build phase each kernel's registers and spills;
@@ -513,11 +514,18 @@ def phase_kernels_v1(lp) -> dict:
 
 def phase_kernels_stages(lp) -> dict:
     """The stage kernel in the six stage shapes of one x/y-pipeline apply at
-    the bench (single and K-concat forms); returns B4's record, whose times
-    and bound are the sums over the six shapes (one apply's stages)."""
+    the bench (single and K-concat forms), each with its band descriptor
+    built before the comparison and the timed calls, and beside it the
+    floor of any kernel that moves the stage's bytes: a torch copy of as
+    many bytes (``copy_same_bytes_ms``) and, once, an empty kernel
+    (``empty_kernel_ms``), timed the same way; returns B4's record, whose
+    times and bound are the sums over the six shapes (one apply's
+    stages)."""
     import torch
 
-    from l3ster_tpu_torch.ops.stages import kstacked_matmul, kstacked_matmul_plain, stage_tables
+    from l3ster_tpu_torch.ops.stages import (
+        band_descriptor, kernel_occupancy, kstacked_matmul, kstacked_matmul_plain, stage_tables,
+    )
 
     order, ne, q_order = 6, 6, lp.AssemblyOptions().quadrature_order(6)
     q1 = q_order // 2 + 1
@@ -529,7 +537,7 @@ def phase_kernels_stages(lp) -> dict:
         ("x_transpose_NDT", czy, "NDT", True),
     ]
     rng = np.random.default_rng(7)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, flops=0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, copy_same_bytes_ms=0.0, bound_ms=0.0, bytes=0, flops=0)
     max_abs = 0.0
     for name, M, kind, pair in stages_:
         T = stage_tables(order, q_order, ne, kind)
@@ -539,27 +547,35 @@ def phase_kernels_stages(lp) -> dict:
         args = {}
         for dt in (torch.float64, torch.float32):
             xs = [torch.as_tensor(h, dtype=dt, device="cuda") for h in host]
-            args[dt] = (xs[0], xs[1] if pair else None, torch.as_tensor(T, dtype=dt, device="cuda"))
+            band = band_descriptor(T, K1, "cuda", dt)
+            args[dt] = (xs[0], xs[1] if pair else None, band.table, band)
 
-        def lib(x, x2, Tt, K1=K1):  # cuBLAS: one matmul, or two for the pair
+        def lib(x, x2, Tt, band, K1=K1):  # cuBLAS: one matmul, or two for the pair
             out = torch.matmul(x, Tt[:K1])
             return out if x2 is None else torch.addmm(out, x2, Tt[K1:])
 
         res = _compare_call(
-            lambda x, x2, Tt, N=N: kstacked_matmul(x, x2, Tt, N),
-            lambda x, x2, Tt, N=N: kstacked_matmul_plain(x, x2, Tt, N), lib,
+            lambda x, x2, Tt, band, N=N: kstacked_matmul(x, x2, Tt, N, band),
+            lambda x, x2, Tt, band, N=N: kstacked_matmul_plain(x, x2, Tt, N), lib,
             args[torch.float64], args[torch.float32],
         )
         nbytes = 4 * (M * KT + KT * N + M * N)
         flops = 2 * M * int((T != 0).sum())  # the table's nonzero band
         bound_ms, bound_by = _bound(nbytes, flops)
+        src = torch.empty(nbytes // 8, device="cuda")  # read and written: nbytes in all
+        dst = torch.empty_like(src)
+        copy_ms = _cuda_ms(lambda: dst.copy_(src), queued=True)
+        del src, dst
+        occ = kernel_occupancy(torch.float32, M, K1, KT - K1, args[torch.float32][3])
         _say(
             "kernel_vs_plain", kernel="stage_matmul", stage=name, shape=[M, KT, N], pair=pair,
-            f64_tol=F64_KERNEL_TOL, f32_tol=F32_KERNEL_TOL, bytes=nbytes, flops=flops,
-            bound_ms=bound_ms, bound_by=bound_by, **res,
+            band_span=list(band.span), f64_tol=F64_KERNEL_TOL, f32_tol=F32_KERNEL_TOL, bytes=nbytes,
+            flops=flops, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / res["ms"],
+            copy_same_bytes_ms=copy_ms, launch_shape=occ, **res,
         )
         if not res["ok"]:
             raise SystemExit(f"chip_smoke: the stage kernel disagrees with its plain version ({name})")
+        tot["copy_same_bytes_ms"] += copy_ms
         for k in ("ms", "plain_ms", "library_ms"):
             tot[k] += res[k]
         tot["bound_ms"] += bound_ms
@@ -567,7 +583,11 @@ def phase_kernels_stages(lp) -> dict:
         tot["flops"] += flops
         max_abs = max(max_abs, res["f32_abs_err"])
     bound_by = "bytes" if tot["bytes"] / PEAK_BYTES >= tot["flops"] / PEAK_F32_FLOPS else "operations"
-    _say("kernel_stage_totals", kernel="stage_matmul", stages=len(stages_), **tot)
+    _say(
+        "kernel_stage_totals", kernel="stage_matmul", stages=len(stages_),
+        share_of_bound=tot["bound_ms"] / tot["ms"],
+        empty_kernel_ms=_cuda_ms(lambda: torch.cuda._sleep(0), queued=True), **tot,
+    )
     return dict(
         name="stage_matmul", route="cuda", source="l3ster_tpu_torch/csrc/stage_matmul.cu",
         replaces="l3ster_tpu/ops/pallas_stages.py:166", launches=None, max_abs_err=max_abs,

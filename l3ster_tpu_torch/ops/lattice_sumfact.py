@@ -199,29 +199,30 @@ def _apply_xy(A_const, t, geom_t, order: int, q_order: int, ne: tuple, ztabs):
     R, Q = q1 * ne[1], q1 * ne[0]
     czy, czQ = c * n1z * n1y, c * n1z * Q
 
-    def tab(ne_a, kind):
-        return device_table(order, q_order, ne_a, kind, t.dtype, t.device)
+    def stage(x, x2, ne_a, kind, N):  # with the table and its band, cached per (axis, kind)
+        T, band = device_table(order, q_order, ne_a, kind, t.dtype, t.device)
+        return kstacked_matmul(x, x2, T, N, band)
 
     # x interpolation: one [N|D]-paired stage
-    axd = kstacked_matmul(t.reshape(czy, n1x), None, tab(ne[0], "ND"), 2 * Q)
+    axd = stage(t.reshape(czy, n1x), None, ne[0], "ND", 2 * Q)
     ax = axd[:, :Q].reshape(c, n1z, n1y, Q)
     adx = axd[:, Q:].reshape(c, n1z, n1y, Q)
     # y interpolation on (c, z, Q) rows: the outputs come in QR lane order
     axT = ax.transpose(2, 3).reshape(czQ, n1y)
     adxT = adx.transpose(2, 3).reshape(czQ, n1y)
-    bqd = kstacked_matmul(axT, None, tab(ne[1], "ND"), 2 * R)
-    bdxq = kstacked_matmul(adxT, None, tab(ne[1], "N"), R)
+    bqd = stage(axT, None, ne[1], "ND", 2 * R)
+    bdxq = stage(adxT, None, ne[1], "N", R)
     b = bqd[:, :R].reshape(c, n1z, Q * R)
     bdy = bqd[:, R:].reshape(c, n1z, Q * R)
     bdx = bdxq.reshape(c, n1z, Q * R)
     a, ady, adxz = fused_z_sweep(A_const, b, bdy, bdx, _permute_geom_qr(geom_t, R, Q), ztabs)
     # y transpose: rows are already (c, z, Q); the K-concat pair for a
-    a2q = kstacked_matmul(a.reshape(czQ, R), ady.reshape(czQ, R), tab(ne[1], "NDT"), n1y)
-    adx2q = kstacked_matmul(adxz.reshape(czQ, R), None, tab(ne[1], "NT"), n1y)
+    a2q = stage(a.reshape(czQ, R), ady.reshape(czQ, R), ne[1], "NDT", n1y)
+    adx2q = stage(adxz.reshape(czQ, R), None, ne[1], "NT", n1y)
     # x transpose on (c, z, y) rows
     a2 = a2q.reshape(c, n1z, Q, n1y).transpose(2, 3).reshape(czy, Q)
     adx2 = adx2q.reshape(c, n1z, Q, n1y).transpose(2, 3).reshape(czy, Q)
-    y = kstacked_matmul(a2, adx2, tab(ne[0], "NDT"), n1x)
+    y = stage(a2, adx2, ne[0], "NDT", n1x)
     return y.reshape(c, n1z, n1y, n1x)
 
 

@@ -303,25 +303,108 @@ def test_zsweep_v1_kernel_matches_plain(cuda):
             assert _rel(x_got, x_ref) < tol, dt
 
 
+def _stage_case(case: str, rng):
+    """(x, x2, T, pass the band) of one stage-kernel case, in f64 on the host."""
+    from l3ster_tpu_torch.ops.stages import stage_tables
+
+    M, pair, T = 1000, False, None
+    if case in ("ND", "N", "NT"):
+        T = stage_tables(6, 22, 3, case)
+    elif case == "NDT":
+        T, pair = stage_tables(6, 22, 3, case), True
+    elif case == "pair-K1-ne-K2":  # a banded pair table split at K1 = 20 of 33 rows
+        T = np.zeros((33, 29))
+        for n in range(29):
+            T[n % 18 : n % 18 + 3, n] = rng.normal(size=3)
+            T[20 + n % 9 : 25 + n % 9, n] = rng.normal(size=5)
+        return rng.normal(size=(777, 20)), rng.normal(size=(777, 13)), T, True
+    elif case in ("ragged-M", "M-below-slab", "odd-M-K1"):
+        T = stage_tables(3, 8, 2, "NDT" if case == "odd-M-K1" else "ND")
+        M = {"ragged-M": 1013, "M-below-slab": 3, "odd-M-K1": 333}[case]
+        pair = case == "odd-M-K1"
+    elif case == "dense":
+        T = rng.normal(size=(45, 38))
+    elif case == "zero-col-edge-bands":  # column 2 all zero, bands at row 0 and row K - 1
+        T = np.zeros((30, 11))
+        T[0, 0], T[29, 1], T[0:30, 3] = 1.5, -2.0, rng.normal(size=30)
+        T[[0, 29], 4] = 3.0
+        T[7:12, 5:] = rng.normal(size=(5, 6))
+    elif case in ("offset-view", "no-descriptor"):
+        T = stage_tables(6, 22, 3, "NDT")
+        pair = True
+    elif case == "many-slabs":  # more slabs than the card holds blocks at once
+        T, M = stage_tables(6, 22, 3, "ND"), 100_000
+    elif case == "many-slabs-padded-rows":
+        T, M, pair = stage_tables(6, 22, 3, "NDT"), 60_000, True
+    K1 = T.shape[0] // 2 if pair else T.shape[0]
+    x = rng.normal(size=(M, K1))
+    x2 = rng.normal(size=(M, T.shape[0] - K1)) if pair else None
+    return x, x2, T, case != "no-descriptor"
+
+
+def _at_offset(t: torch.Tensor) -> torch.Tensor:
+    buf = t.new_zeros(t.numel() + 1)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+STAGE_CASES = [
+    "ND", "N", "NDT", "NT", "pair-K1-ne-K2", "ragged-M", "M-below-slab", "odd-M-K1", "dense",
+    "zero-col-edge-bands", "offset-view", "no-descriptor", "many-slabs", "many-slabs-padded-rows",
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["single", "pair"])
-def test_stage_kernel_matches_plain(cuda, form):
-    """The stage kernel with ragged row and column tiles, in both forms."""
-    from l3ster_tpu_torch.ops.stages import kstacked_matmul, kstacked_matmul_plain, stage_tables
+@pytest.mark.parametrize("case", STAGE_CASES)
+def test_stage_kernel_matches_plain(cuda, case):
+    """The banded stage kernel against its plain version in f64 and f32: the
+    four table kinds, a pair split at K1 != K2, slabs that are ragged, wider
+    than M or unaligned to 16 bytes (M * K1 not a multiple of 4, x a view at
+    an offset), a
+    dense table (its band is all of K), a zero column with bands at rows 0 and
+    K - 1, a call without a band (built from T), and more slabs than the
+    card holds blocks at once, with unpadded and padded rows."""
+    from l3ster_tpu_torch.ops.stages import band_descriptor, kstacked_matmul, kstacked_matmul_plain
 
     rng = np.random.default_rng(8)
-    M = 1000
-    T = stage_tables(6, 22, 3, "ND" if form == "single" else "NDT")
-    K = T.shape[0] if form == "single" else T.shape[0] // 2
-    x = torch.as_tensor(rng.normal(size=(M, K)), device=cuda)
-    x2 = None if form == "single" else torch.as_tensor(rng.normal(size=(M, K)), device=cuda)
+    x, x2, T, with_band = _stage_case(case, rng)
+    N, K1 = T.shape[1], x.shape[1]
+    bands = {dt: band_descriptor(T, K1, cuda, dt) if with_band else None for dt, _ in TOLS}
+    if case == "dense":
+        assert (bands[torch.float64].desc[:, 1] == T.shape[0]).all()
+    xt = torch.as_tensor(x, device=cuda)
+    x2t = None if x2 is None else torch.as_tensor(x2, device=cuda)
     Tt = torch.as_tensor(T, device=cuda)
-    ref = kstacked_matmul_plain(x, x2, Tt, T.shape[1])
+    ref = kstacked_matmul_plain(xt, x2t, Tt, N)
     for dt, tol in TOLS:
-        got = kstacked_matmul(x.to(dt), None if x2 is None else x2.to(dt), Tt.to(dt), T.shape[1])
+        xd, x2d = xt.to(dt), None if x2t is None else x2t.to(dt)
+        if case == "offset-view":  # contiguous, but one value past a 16-byte boundary
+            xd, x2d = _at_offset(xd), _at_offset(x2d)
+            assert xd.is_contiguous() and xd.data_ptr() % 16 != 0
+        got = kstacked_matmul(xd, x2d, bands[dt].table if with_band else Tt.to(dt), N, bands[dt])
         torch.cuda.synchronize()
-        assert tuple(got.shape) == (M, T.shape[1])
+        assert tuple(got.shape) == (x.shape[0], N)
         assert _rel(got, ref) < tol, dt
+
+
+@pytest.mark.cuda
+def test_stage_kernel_counts_launches(cuda):
+    """launch_count rises by one per call on the card, with or without a
+    band, and not for a call on CPU tensors."""
+    from l3ster_tpu_torch.ops import stages
+
+    T = stages.stage_tables(3, 8, 2, "ND")
+    x = torch.as_tensor(np.random.default_rng(9).normal(size=(50, T.shape[0])))
+    Tt = torch.as_tensor(T)
+    band = stages.band_descriptor(T, T.shape[0], cuda, torch.float64)
+    before = stages.launch_count
+    stages.kstacked_matmul(x, None, Tt, T.shape[1])
+    assert stages.launch_count == before
+    stages.kstacked_matmul(x.to(cuda), None, band.table, T.shape[1], band)
+    assert stages.launch_count == before + 1
+    stages.kstacked_matmul(x.to(cuda), None, Tt.to(cuda), T.shape[1])
+    torch.cuda.synchronize()
+    assert stages.launch_count == before + 2
 
 
 def _var_diffusion(inp, out):

@@ -42,6 +42,99 @@ def test_stage_tables_match_reference(kind):
             np.testing.assert_array_equal(ps.kc_transpose_tables(order, qo, ne), ref)
 
 
+@pytest.mark.parametrize("kind", ["ND", "N", "NDT", "NT"])
+def test_band_descriptor_covers_table(kind):
+    """The band descriptor of each table kind (p = 2, 3; ne = 2, 3) holds
+    exactly T's nonzero rows per column and K half, a walk over those bands
+    alone gives ``x @ T`` (f64, 1e-14 of max |x @ T|), and its packed values
+    rebuild T."""
+    from l3ster_tpu_torch.ops import stages as ps
+
+    rng = np.random.default_rng(5)
+    for order, ne in [(2, 2), (2, 3), (3, 2), (3, 3)]:
+        T = ps.stage_tables(order, 2 * order + 2, ne, kind)
+        K, N = T.shape
+        k1 = K // 2 if kind == "NDT" else K
+        band = ps.band_descriptor(T, k1)
+        desc = band.desc.numpy()
+        assert desc.shape == (N, 4) and band.k1 == k1
+        x = rng.normal(size=(9, K))
+        got = np.zeros((9, N))
+        for n in range(N):
+            for h, lo in enumerate((0, k1)):
+                first, count = desc[n, 2 * h : 2 * h + 2]
+                rows = np.flatnonzero(T[lo : (k1 if h == 0 else K), n])
+                if count == 0:
+                    assert rows.size == 0
+                    continue
+                assert (rows.min(), rows.max()) == (first, first + count - 1)
+                r = lo + first + np.arange(count)
+                got[:, n] += x[:, r] @ T[r, n]
+        a = ps._vec_width(k1, K - k1, 8)  # span: the widest union of 4 columns' bands, in whole vectors
+        for h, lo, hi in ((0, 0, k1), (1, k1, K)):
+            widths = [0]
+            for g in range(0, N, 4):
+                rows = np.flatnonzero(T[lo:hi, g : g + 4].any(axis=1))
+                if rows.size:
+                    widths.append(-(-(rows.max() + 1) // a) * a - rows.min() // a * a)
+            assert band.span[h] == max(widths)
+        ref = x @ T
+        assert np.abs(got - ref).max() <= 1e-14 * np.abs(ref).max()
+        # the packed values put T back together from the group unions
+        # (unions widened to whole 16-byte vectors where both halves are)
+        vals, back = band.values.numpy(), np.zeros_like(T)
+        a = ps._vec_width(k1, K - k1, 8)
+        for g in range(vals.shape[0]):
+            cols = slice(4 * g, min(4 * g + 4, N))
+            for h, lo in enumerate((0, k1)):
+                f, cnt = desc[cols, 2 * h], desc[cols, 2 * h + 1]
+                if cnt.any():
+                    kb, end = f[cnt > 0].min() // a * a, -(-(f + cnt).max() // a) * a
+                    off = band.span[0] if h else 0
+                    back[lo + kb : lo + end, cols] = vals[g, off : off + end - kb, : cols.stop - cols.start]
+        np.testing.assert_array_equal(back, T)
+
+
+def test_stage_launch_shapes_fit():
+    """The kernel's launch shapes at the x/y stages of the bench (6^3 hexes)
+    and of a 12^3 box, f32 and f64: within the block and shared-memory
+    limits, the padded-row path where both K halves are whole 16-byte
+    vectors, and one slab (block) per rgs * rm rows."""
+    from l3ster_tpu_torch.ops import stages as ps
+    from l3ster_tpu_torch.ops._cuda import SMEM_LIMIT
+
+    for ne in (6, 12):
+        n1, Qa = 6 * ne + 1, 12 * ne
+        for kind, M in (("ND", 4 * n1 * n1), ("N", 4 * n1 * Qa), ("NDT", 4 * n1 * Qa), ("NT", 4 * n1 * Qa)):
+            T = ps.stage_tables(6, 22, ne, kind)
+            K, N = T.shape
+            k1 = K // 2 if kind == "NDT" else K
+            for dtype in (torch.float32, torch.float64):
+                band = ps.band_descriptor(T, k1, dtype=dtype)
+                sh = ps.launch_shape(M, N, k1, K - k1, band.span, band.values.element_size(), 132)
+                assert sh["smem"] <= SMEM_LIMIT and sh["threads"] <= 256
+                assert sh["vec"] == (kind in ("NDT", "NT"))
+                assert sh["slabs"] == -(-M // (sh["rgs"] * sh["rm"]))
+
+
+def test_stage_band_belongs_to_its_table():
+    """A band is held to the table it was built from: a call with that table
+    gives ``x @ T``; a call with another table of the same shape, or with a
+    copy of its own, raises (the kernel would read the band's values)."""
+    from l3ster_tpu_torch.ops import stages as ps
+
+    T = ps.stage_tables(2, 6, 2, "ND")
+    band = ps.band_descriptor(T, T.shape[0])
+    x = torch.as_tensor(np.random.default_rng(6).normal(size=(5, T.shape[0])))
+    got = ps.kstacked_matmul(x, None, band.table, T.shape[1], band)
+    assert float((got - x @ torch.as_tensor(T)).abs().max()) <= 1e-14
+    table, cached = ps.device_table(2, 6, 2, "ND", torch.float64, torch.device("cpu"))
+    assert cached.built_from(table) and table is cached.table
+    for other in (torch.as_tensor(T[::-1].copy()), band.table.clone()):
+        with pytest.raises(ValueError, match="another table"):
+            ps.kstacked_matmul(x, None, other, T.shape[1], band)
+
+
 @pytest.mark.parametrize("form", ["single", "pair"])
 def test_kstacked_matmul_plain_matches_pallas(form):
     """``x @ T`` (an [N|D] interpolation stage) and ``x @ T1 + x2 @ T2`` (a
