@@ -2,7 +2,7 @@
 
 Drives ``l3ster_tpu_torch`` (never JAX, never ``l3ster_tpu``) through its
 main paths, matrix-free 3D diffusion (4 unknowns, 7 equations, float32),
-each solved with CG + Jacobi:
+each solved with CG + Jacobi, the lattice ones also with CG + LowOrderMG:
 
 * the lattice path at the bench configuration: a p=6 cube of 6^3 hexes
   (202,612 dofs), value-only adiabatic faces on sides 1-4 and Dirichlet T on
@@ -14,6 +14,9 @@ each solved with CG + Jacobi:
   kernel with its conservation row times k = 1 + x*y, Dirichlet T = x from a
   boundary kernel, at the bench size and on a 12^3-hex p=6 cube (1,556,068
   dofs);
+* the assembled path: local LSFEM assembly (``local_system``) at the
+  reference bench suite's configuration (p = 4, 4^3 hexes), and an
+  ``AssembledSystem`` of the bench kernel at p = 4 on 6^3 hexes;
 * the unstructured path on the cylinder-in-channel mesh at its default size
   (``make_cylinder_in_channel_3d()``, 17,456 hexes) at p = 4 (4,789,376
   dofs): Dirichlet T = x from a boundary residual kernel on the inlet (3),
@@ -32,7 +35,8 @@ Phases, each reported on its own line:
    behind a sleep kernel) of kernel, plain version and a cuBLAS-matmul chain
    of the same function (``library_ms``): the z-sweep const (diag, full) and
    var (full, diag, K = 15 planes) at the bench shapes, its ``"zc"`` layout,
-   var+full at the 12^3 shapes, the v1 wrapper, the stage kernel in the six
+   var+full at the 12^3 shapes, const+diag and var+full at the shapes of
+   the multigrid's order-1 levels, the v1 wrapper, the stage kernel in the six
    stage shapes of an x/y-pipeline apply (single and K-concat forms, each
    with its band descriptor built before the timed calls) and their sums, then
    the per-QP and fused sum-factorized kernels at the cylinder's shapes; the
@@ -41,13 +45,21 @@ Phases, each reported on its own line:
 4. the lattice main path: the bench system's operator apply (f32) against
    the same system in f64 on the card, and a small system against the CPU
    path; apply time, GFLOP/s, device-busy time and idle share;
-5. CG + Jacobi on the manufactured T = x problem at the bench size;
+5. CG + Jacobi on the manufactured T = x problem at the bench size, then
+   CG + LowOrderMG on it (``mg_solve``): cold and warm solves, the setup's
+   split, one V-cycle's time and idle share, the true residual, B1
+   launches by multigrid level; it must take fewer iterations than Jacobi;
 6. the bench system under each opt-in pipeline: its apply against the
    default one, its time, device-busy time and kernel launches;
 7. the variable-coefficient path at the bench size and at 12^3 hexes: f32
    apply against the f64 system on the card (and, at the bench size, a small
    f64 system against the CPU path), apply time, device-busy time, idle
-   share and the costliest kernels, then CG + Jacobi with its nodal errors;
+   share and the costliest kernels, then CG + Jacobi with its nodal errors,
+   and at 12^3 CG + LowOrderMG as in phase 5 (``var_mg_solve_12x12x12``);
+7b. the assembly rate (element assemblies/s at QO = 2p and 4p - 2, K
+   symmetric and against f64) and the assembled system (build time by part,
+   nnz, SpMV beside the gather form, apply against the matrix-free one, CG
+   + Jacobi beside the matrix-free solve's iterations);
 8. the unstructured main path: the cylinder system's apply (f32, AUTO)
    against the same system in f64 on the card, a small cylinder system
    against the CPU path, apply time, device-busy time and idle share; the
@@ -55,8 +67,10 @@ Phases, each reported on its own line:
 9. CG + Jacobi on the cylinder problem.
 
 Each kernel's launch count is set to 0 just before the path it is counted
-on and read just after it: the z-sweep's const mode on phases 4-5, its var
-mode on the bench-size phase 7, the v1 wrapper and the stage kernel on their
+on and read just after it: the z-sweep's const mode on phases 4-5 and then
+on the bench's multigrid solve, its var mode on the bench-size phase 7 and
+then on the 12^3 multigrid solve (each row sums its two paths), the v1
+wrapper and the stage kernel on their
 phase 6 systems, the per-QP kernel on phases 8-9 (after its comparison
 systems ran), the fused one on the SUM_FACT_PALLAS system.  The
 second-to-last lines are the kernels' JSON record and the nvidia-smi line;
@@ -202,16 +216,20 @@ def _var_diffusion_3d(inp, out):
     ops[3][0, 3] = -k
 
 
-def _build_system(lp, order, n_1d, dtype, device, kernel=_diffusion_3d):
-    """The bench configuration on an order-``order`` cube of (n_1d - 1)^3 hexes.
+def _build_system(lp, order, n_1d, dtype, device, kernel=_diffusion_3d, assembled=False, hook=None):
+    """The bench configuration on an order-``order`` cube of (n_1d - 1)^3 hexes,
+    matrix-free or ``assembled``; ``hook(system)`` runs before the assembly.
     The constant kernel takes T = 0 and T = 1 on sides 5 and 6; the variable
     one T = x from a boundary kernel (the same values on the unit cube)."""
     mesh = lp.generate_mesh(lp.make_cube_mesh(np.linspace(0.0, 1.0, n_1d)), order=order)
     problem = lp.ProblemDefinition(4, [0])
     bcs = lp.BCDefinition(problem)
     bcs.define_dirichlet([5, 6], [0])
-    params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
+    S = lp.OperatorEvaluationStrategy
+    params = lp.AlgebraicSystemParams(eval_strategy=S.GLOBAL_ASSEMBLY if assembled else S.MATRIX_FREE)
     system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
+    if hook is not None:
+        hook(system)
     kd = lp.wrap_domain_equation_kernel(kernel, lp.KernelParams(3, 7, 4))
     kn = lp.wrap_boundary_equation_kernel(_adiabatic_3d, lp.KernelParams(3, 1, 4))
     if kernel is _diffusion_3d:
@@ -325,15 +343,16 @@ def _ptxas_summary(log: str) -> list:
     return out
 
 
-def _bench_kernel_inputs(lp, seed: int, ne: int = 6):
-    """Bench shapes (p = 6, ne^3 hexes: 6^3 the bench, 12^3 the var 12^3 box)
-    and random inputs of the z-sweep: the constant A of the bench kernel, the
-    nonzero planes of its variable form and both geometries, made with numpy
-    from a seed."""
+def _bench_kernel_inputs(lp, seed: int, ne: int = 6, order: int = 6):
+    """Shapes of the z-sweep on a lattice of ne^3 elements of the given order
+    (p = 6: 6^3 the bench, 12^3 the var 12^3 box; p = 1: the multigrid's
+    order-1 levels) and random inputs: the constant A of the bench kernel,
+    the nonzero planes of its variable form and both geometries, made with
+    numpy from a seed."""
     from l3ster_tpu_torch.algsys.system import _constant_kernel_operators
     from l3ster_tpu_torch.ops.lattice_sumfact import banded_tables
 
-    order, q_order = 6, lp.AssemblyOptions().quadrature_order(6)
+    q_order = lp.AssemblyOptions().quadrature_order(order)
     q1 = q_order // 2 + 1
     S = ne * q1
     RQ = S * S
@@ -429,11 +448,15 @@ def phase_kernels(lp) -> tuple[dict, dict]:
     from l3ster_tpu_torch.ops.zsweep import fused_z_sweep, fused_z_sweep_plain, kernel_occupancy, plane_table
 
     records = {}
-    for var, mode, layout, ne in (
-        (False, "diag", "cz", 6), (False, "full", "cz", 6), (True, "full", "cz", 6), (True, "diag", "cz", 6),
-        (True, "full", "zc", 6), (True, "full", "cz", 12),  # the last: the var 12^3 apply's shapes
+    for var, mode, layout, ne, order in (
+        (False, "diag", "cz", 6, 6), (False, "full", "cz", 6, 6), (True, "full", "cz", 6, 6),
+        (True, "diag", "cz", 6, 6), (True, "full", "zc", 6, 6),
+        (True, "full", "cz", 12, 6),  # the var 12^3 apply's shapes
+        # the multigrid's order-1 levels: the bench's level 1 (19^3 nodes) and
+        # the var 12^3 box's level 1 (37^3 nodes)
+        (False, "diag", "cz", 18, 1), (True, "full", "cz", 36, 1),
     ):
-        inp = _bench_kernel_inputs(lp, seed=0, ne=ne)
+        inp = _bench_kernel_inputs(lp, seed=0, ne=ne, order=order)
         A, nz = inp["A"], inp["nz"]
         args = {}
         for dt in (torch.float64, torch.float32):
@@ -461,13 +484,15 @@ def phase_kernels(lp) -> tuple[dict, dict]:
         occ = kernel_occupancy(torch.float32, mode == "diag", A_k, K, tabs32, inp["RQ"])
         name = "zsweep_var" if var else "zsweep"
         _say(
-            "kernel_vs_plain", kernel=name, mode=mode, layout=layout, planes=K, ne_z=ne,
+            "kernel_vs_plain", kernel=name, mode=mode, layout=layout, planes=K, ne_z=ne, order=order,
             shape=[inp["c"], inp["n1z"], inp["S"], inp["RQ"]], f64_tol=F64_KERNEL_TOL,
             f32_tol=F32_KERNEL_TOL, bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
             share_of_bound=bound_ms / res["ms"], launch_shape=occ, **res,
         )
         if not res["ok"]:
-            raise SystemExit(f"chip_smoke: {name} disagrees with its plain version ({mode} {layout} ne_z={ne})")
+            raise SystemExit(
+                f"chip_smoke: {name} disagrees with its plain version ({mode} {layout} ne_z={ne} p={order})"
+            )
         if name not in records:  # the first mode of each is its path's: const diag, var full
             records[name] = _zsweep_record(name, "l3ster_tpu/ops/pallas_zsweep2.py:402", res, bound_ms, bound_by)
         del args, inp
@@ -650,7 +675,7 @@ def phase_main_path(lp) -> dict:
     return {"system": system, "mesh": mesh, "xl": xl, "y32": y32, "apply_ms": apply_ms}
 
 
-def phase_solve(lp, state: dict, phase: str = "solve") -> None:
+def phase_solve(lp, state: dict, phase: str = "solve") -> int:
     import torch
 
     from l3ster_tpu_torch.ops import zsweep
@@ -662,18 +687,21 @@ def phase_solve(lp, state: dict, phase: str = "solve") -> None:
     r = system.solve(lp.CG(lp.IterSolverOpts(tol=CG_TOL, max_iters=CG_MAX_ITERS), precond=lp.Jacobi()))
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
+    b = system.effective_rhs()
+    true_res = float((b - system.operator()(system.x)).norm() / b.norm())
     X = system.x[:, 0].reshape(-1, 4).double().cpu().numpy()
     err_T = float(np.abs(X[:, 0] - mesh.node_coords[:, 0]).max())
     err_q = float(max(np.abs(X[:, 1] - 1.0).max(), np.abs(X[:, 2:]).max()))
     _say(
         phase, n_dofs=system.n_dofs, solver="CG+Jacobi", dtype="float32", tol=CG_TOL, max_iters=CG_MAX_ITERS,
-        iterations=r.num_iters, achieved_rel_residual=r.tol, converged=r.converged,
-        solve_s=solve_s, ms_per_iteration=solve_s * 1e3 / max(r.num_iters, 1),
+        iterations=r.num_iters, achieved_rel_residual=r.tol, true_rel_residual=true_res,
+        converged=r.converged, solve_s=solve_s, ms_per_iteration=solve_s * 1e3 / max(r.num_iters, 1),
         max_nodal_err_T_minus_x=err_T, max_nodal_err_q_minus_1_0_0=err_q,
         zsweep_launches=zsweep.launch_count - before,
     )
     if not r.converged:
         raise SystemExit(f"chip_smoke: CG + Jacobi did not reach its tolerance ({phase})")
+    return r.num_iters
 
 
 def phase_switches(lp, state: dict) -> dict:
@@ -1127,6 +1155,271 @@ def phase_unstructured_solve(lp, state: dict) -> None:
     if not r.converged:
         raise SystemExit("chip_smoke: cylinder CG + Jacobi did not reach its tolerance")
 
+# ----------------------------------------------------- assembled system and multigrid
+
+F32_ASM_TOL = 1e-5  # f32 local K vs f64 K, and K's asymmetry, relative to max |K|
+ASM_ORDER, ASM_N1D = 4, 7  # the assembled phase: p = 4 on 6^3 hexes
+
+
+def _synced_timer(fn, timers: dict, key: str, after=None):
+    """fn wrapped to add its wall seconds, between device synchronizes, to
+    timers[key]; ``after(result)`` sees each result."""
+    import torch
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        timers[key] = timers.get(key, 0.0) + time.perf_counter() - t0
+        if after is not None:
+            after(out)
+        return out
+
+    return wrapped
+
+
+def phase_assembly_rate(lp, device: str = "cuda", n_1d: int = 5) -> None:
+    """Element assemblies per second of ``local_system`` (geometry, kernel and
+    local K, F) at the configuration of ``benchmarks/bench_suite.py:127-178``
+    (p = 4, 4^3 hexes, QO = 2p = 8, f32, ``qp_chunk=128``) and at the
+    framework's default QO = 4p - 2 = 14: CUDA-event times of back-to-back
+    calls, median of 20; K is checked symmetric and against the f64 K."""
+    import torch
+
+    from l3ster_tpu_torch.algsys.local import domain_tables, element_geometry, local_system
+
+    order = 4
+    blk = lp.generate_mesh(lp.make_cube_mesh(np.linspace(0.0, 1.0, n_1d)), order=order).domains[0][0]
+    kd = lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4))
+    for qo_name, opts in (
+        ("2p", lp.AssemblyOptions(value_order=1, derivative_order=0)), ("4p-2 (default)", lp.AssemblyOptions()),
+    ):
+        qo = opts.quadrature_order(order)
+        tab = domain_tables(blk.element_type, order, qo)
+
+        def assemble(verts, tab=tab):
+            return local_system(kd, tab, element_geometry(tab, verts), qp_chunk=128)
+
+        v32 = torch.as_tensor(blk.vertices, dtype=torch.float32, device=device)
+        K32, F32 = assemble(v32)
+        K64, _ = assemble(v32.double())
+        scale = float(K64.abs().max())
+        asym = float((K32 - K32.transpose(1, 2)).abs().max()) / scale
+        err = float((K32.double() - K64).abs().max()) / scale
+        finite = bool(torch.isfinite(K32).all() and torch.isfinite(F32).all())
+        ms = _cuda_ms(lambda: assemble(v32))
+        busy_ms, top = _profile_apply(assemble, v32)
+        ok = finite and asym < F32_ASM_TOL and err < F32_ASM_TOL
+        _say(
+            "assembly_rate", order=order, n_elements=blk.n_elements, quadrature_order=qo, qo_rule=qo_name,
+            n_qp=tab.n_qp, qp_chunk=128, dtype="float32", K_shape=list(K32.shape), ms=ms,
+            elements_per_s=blk.n_elements / (ms * 1e-3), device_busy_ms=busy_ms,
+            device_idle_share=1.0 - busy_ms / ms, top_device_ms_per_call=top,
+            K_asymmetry_rel=asym, f32_vs_f64_K_rel_err=err, tol=F32_ASM_TOL, finite=finite, ok=ok,
+        )
+        if not ok:
+            raise SystemExit(f"chip_smoke: local assembly failed its checks (QO = {qo})")
+        del K32, F32, K64
+        torch.cuda.empty_cache()
+
+
+def _spmv_gather(x, data, cols, rows, n: int):
+    """The reference's SpMV form (gather, multiply, ``index_add_`` by row): the
+    other form beside the port's CSR product; the port never calls it."""
+    import torch
+
+    return torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device).index_add_(0, rows, data[:, None] * x[cols])
+
+
+def phase_assembled(lp, device: str = "cuda", order: int = ASM_ORDER, n_1d: int = ASM_N1D) -> None:
+    """An AssembledSystem for the bench kernel at p = 4 on 6^3 hexes (f32 on
+    the card): its build time split into host sparsity, local assembly,
+    host scatter positions and the scatter; nnz; the SpMV (the CSR product)
+    beside the gather form; its apply against the matrix-free apply of the
+    same problem (f64 and f32); CG + Jacobi beside the matrix-free solve."""
+    import torch
+
+    rng = np.random.default_rng(21)
+    _, mf64 = _build_system(lp, order, n_1d, torch.float64, device)
+    x64 = torch.as_tensor(rng.normal(size=(mf64.n_dofs, 1)), device=device)
+    y_mf = mf64.operator()(x64)
+    del mf64
+    _, as64 = _build_system(lp, order, n_1d, torch.float64, device, assembled=True)
+    err64 = float((as64.operator()(x64) - y_mf).abs().max() / y_mf.abs().max())
+    del as64
+    torch.cuda.empty_cache()
+
+    timers: dict = {}
+    cls = lp.AssembledSystem
+    orig_sparsity = cls._build_sparsity
+    cls._build_sparsity = _synced_timer(orig_sparsity, timers, "host_sparsity_s")
+
+    def hook(system):
+        timers["constructed_at"] = time.perf_counter()
+        system._local_kf = _synced_timer(system._local_kf, timers, "local_assembly_s")
+        system._scatter_positions = _synced_timer(system._scatter_positions, timers, "host_positions_s")
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, system = _build_system(lp, order, n_1d, torch.float32, device, assembled=True, hook=hook)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        cls._build_sparsity = orig_sparsity
+    del system._local_kf, system._scatter_positions
+    assembly_s = t1 - timers.pop("constructed_at")
+    scatter_s = assembly_s - timers["local_assembly_s"] - timers["host_positions_s"]
+    fn, consts = system.raw_parts()
+    x32 = x64.float()
+    y32 = system.operator()(x32)
+    err32 = float((y32.double() - y_mf).abs().max() / y_mf.abs().max())
+    n = system.n_dofs
+    rows = torch.as_tensor(system._rows, device=device)
+    spmv_ms = _cuda_ms(lambda: fn(x32, *consts))
+    gather_ms = _cuda_ms(lambda: _spmv_gather(x32, system.data, system._cols_dev, rows, n))
+    y_g = _spmv_gather(x32, system.data, system._cols_dev, rows, n)
+    y_c = fn(x32, *consts)
+    forms_err = float((y_g - y_c).abs().max() / y_c.abs().max())
+    # the least bytes of one SpMV: values (f32) and column indices (int64)
+    # once, the row pointers, x read and y written
+    spmv_bytes = system.nnz * (4 + 8) + (n + 1) * 8 + 2 * 4 * n
+    spmv_bound_ms, spmv_bound_by = _bound(spmv_bytes, 2 * system.nnz)
+    opts = lp.IterSolverOpts(tol=CG_TOL, max_iters=CG_MAX_ITERS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    r = system.solve(lp.CG(opts, precond=lp.Jacobi()))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t2
+    b = system.effective_rhs()
+    true_res = float((b - system.operator()(system.x)).norm() / b.norm())
+    _, mf32 = _build_system(lp, order, n_1d, torch.float32, device)
+    r_mf = mf32.solve(lp.CG(opts, precond=lp.Jacobi()))
+    ok = (
+        bool(torch.isfinite(y32).all()) and err64 < F64_APPLY_TOL and err32 < F32_APPLY_TOL
+        and forms_err < F32_KERNEL_TOL and r.converged and r_mf.converged
+    )
+    _say(
+        "assembled", order=order, n_elements=(n_1d - 1) ** 3, n_dofs=n, nnz=system.nnz, dtype="float32",
+        build_s=t1 - t0, **timers, scatter_s=scatter_s,
+        f64_rel_err_vs_matrix_free_on_card=err64, f64_tol=F64_APPLY_TOL,
+        f32_rel_err_vs_f64_matrix_free=err32, f32_tol=F32_APPLY_TOL,
+        spmv_ms=spmv_ms, spmv_form="torch.sparse_csr_tensor @ x", gather_form_ms=gather_ms,
+        gather_form_rel_err=forms_err, spmv_bytes=spmv_bytes, spmv_bound_ms=spmv_bound_ms,
+        spmv_bound_by=spmv_bound_by, spmv_share_of_bound=spmv_bound_ms / spmv_ms,
+        cg_jacobi_iterations=r.num_iters, cg_jacobi_converged=r.converged, cg_solve_s=solve_s,
+        cg_true_rel_residual=true_res, matrix_free_cg_jacobi_iterations=r_mf.num_iters, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the assembled system failed its checks")
+    del system, fn, consts, mf32, rows
+    torch.cuda.empty_cache()
+
+
+def phase_mg_solve(lp, state: dict, jacobi_iters: int, phase: str, precond=None) -> int:
+    """CG + LowOrderMG() to the bench's tolerance on the state's system, from
+    zero, as ``benchmarks/bench_suite.py:226-243`` runs it: the cold solve
+    (setup included) with its setup split into the order-1 systems, the power
+    iterations and the coarse inverse (assembled order-1 system and host
+    float64 inverse), then the warm solve (setup cached by assembly epoch);
+    one V-cycle alone with its device idle share; the true residual beside
+    CG's recursive one; nodal errors; z-sweep launches by level (level 0's
+    include CG's own applies).  Fails unless both solves converge in fewer
+    iterations than CG + Jacobi.  Returns the z-sweep launches of the path
+    (the launch count is set to 0 just before the cold solve)."""
+    import torch
+
+    from l3ster_tpu_torch.ops import zsweep
+    from l3ster_tpu_torch.solve import lowordermg as mgmod
+    from l3ster_tpu_torch.solve.krylov import _precond_parts
+
+    system, mesh = state["system"], state["mesh"]
+    timers: dict = {}
+    launches: dict = {}
+    level_kinds = {}
+
+    def count_level(s, li):
+        apply_ = s._apply
+        level_kinds[li] = [d[0] for _, d in s._operators()[1]]
+
+        def counted(x, lattice_io):
+            before = zsweep.launch_count
+            y = apply_(x, lattice_io)
+            launches[li] = launches.get(li, 0) + zsweep.launch_count - before
+            return y
+
+        s._apply = counted
+
+    levels = [system]
+
+    def new_level(s):
+        if s.device != system.device or s.dtype != system.dtype:
+            raise SystemExit(f"chip_smoke: an order-1 level was built on {s.device} in {s.dtype}")
+        levels.append(s)
+        count_level(s, len(levels) - 1)
+
+    names = ("_build_p1_system", "_lambda_max", "_assembled_dense_inv")
+    orig = {k: getattr(mgmod, k) for k in names}
+    mgmod._build_p1_system = _synced_timer(orig["_build_p1_system"], timers, "order1_systems_s", new_level)
+    mgmod._lambda_max = _synced_timer(orig["_lambda_max"], timers, "power_iterations_s")
+    mgmod._assembled_dense_inv = _synced_timer(orig["_assembled_dense_inv"], timers, "coarse_inverse_host_s")
+    count_level(system, 0)
+    precond = lp.LowOrderMG() if precond is None else precond
+    cg = lp.CG(lp.IterSolverOpts(tol=CG_TOL, max_iters=CG_MAX_ITERS), precond=precond)
+    try:
+        system.set_solution_vector(torch.zeros_like(system.x))
+        zsweep.launch_count = 0  # the multigrid path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = system.solve(cg)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        b = system.effective_rhs()
+        true_res = float((b - system.operator()(system.x)).norm() / b.norm())
+        X = system.x[:, 0].reshape(-1, 4).double().cpu().numpy()
+        system.set_solution_vector(torch.zeros_like(system.x))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_warm = system.solve(cg)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        path_launches = zsweep.launch_count
+        level_launches = dict(launches)  # the two solves' (setup included), not the timing below
+        M_fn, M_consts = _precond_parts(precond, system, "lattice")  # the cached setup
+        r_host = np.random.default_rng(31).normal(size=(system.n_dofs, 1))
+        rl = system.to_lattice_layout(torch.as_tensor(r_host, dtype=system.dtype, device=system.device))
+        vcycle_ms = _cuda_ms(lambda: M_fn(rl, *M_consts), reps=10, batch=5)
+        busy_ms, top = _profile_apply(lambda v: M_fn(v, *M_consts), rl, n=5)
+    finally:
+        for k, f in orig.items():
+            setattr(mgmod, k, f)
+        for s in levels:
+            del s._apply
+    err_T = float(np.abs(X[:, 0] - mesh.node_coords[:, 0]).max())
+    err_q = float(max(np.abs(X[:, 1] - 1.0).max(), np.abs(X[:, 2:]).max()))
+    ok = (
+        r.converged and r_warm.converged and r.num_iters < jacobi_iters and r_warm.num_iters < jacobi_iters
+        and np.isfinite(X).all() and path_launches > 0
+        and all(level_launches.get(i, 0) > 0 for i in range(len(levels)))
+    )
+    _say(
+        phase, n_dofs=system.n_dofs, solver=f"CG+{precond}", dtype="float32", tol=CG_TOL,
+        levels=[dict(level=i, n_dofs=s.n_dofs, kinds=level_kinds[i], zsweep_launches=level_launches.get(i, 0))
+                for i, s in enumerate(levels)],
+        coarse_dofs=int(M_consts[-1].shape[0]), cold_solve_s=cold_s, **timers, iterations=r.num_iters,
+        achieved_rel_residual=r.tol, true_rel_residual=true_res, converged=r.converged,
+        warm_solve_s=warm_s, warm_iterations=r_warm.num_iters, warm_converged=r_warm.converged,
+        ms_per_iteration_warm=warm_s * 1e3 / max(r_warm.num_iters, 1), vcycle_ms=vcycle_ms,
+        vcycle_device_busy_ms=busy_ms, vcycle_device_idle_share=1.0 - busy_ms / vcycle_ms,
+        vcycle_top_device_ms=top, cg_jacobi_iterations=jacobi_iters,
+        max_nodal_err_T_minus_x=err_T, max_nodal_err_q_minus_1_0_0=err_q, zsweep_launches=path_launches, ok=ok,
+    )
+    if not ok:
+        raise SystemExit(f"chip_smoke: CG + LowOrderMG failed its checks ({phase})")
+    return path_launches
+
+
 
 def main() -> int:
     import torch
@@ -1145,8 +1438,9 @@ def main() -> int:
     stage_record = phase_kernels_stages(lp)
     records = phase_kernels_unstructured(lp)
     state = phase_main_path(lp)
-    phase_solve(lp, state)
+    jacobi_iters = phase_solve(lp, state)
     record["launches"] = zsweep.launch_count  # lattice main path: phases 4 and 5
+    record["launches"] += phase_mg_solve(lp, state, jacobi_iters, "mg_solve")  # and its multigrid solve
     launches = phase_switches(lp, state)  # phase 6
     v1_record["launches"] = launches["zsweep_v1"]
     stage_record["launches"] = launches["stage_matmul"]
@@ -1158,9 +1452,12 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     state = phase_var_path(lp, 13, "var_apply_12x12x12")
-    phase_solve(lp, state, "var_solve_12x12x12")
+    jacobi_iters = phase_solve(lp, state, "var_solve_12x12x12")
+    var_record["launches"] += phase_mg_solve(lp, state, jacobi_iters, "var_mg_solve_12x12x12")
     del state
     torch.cuda.empty_cache()
+    phase_assembly_rate(lp)
+    phase_assembled(lp)
     state = phase_unstructured_main_path(lp)
     phase_unstructured_solve(lp, state)
     records[0]["launches"] = qp.launch_count  # unstructured main path: phases 8 and 9

@@ -12,7 +12,7 @@ This package imports torch and numpy only.  Entry points take an explicit
 asked for.  ``ROADMAP.md`` lists what is ported so far.
 """
 
-from .algsys.system import MatrixFreeSystem, make_algebraic_system
+from .algsys.system import AssembledSystem, MatrixFreeSystem, make_algebraic_system
 from .common.enums import CondensationPolicy, LocalEvalStrategy, OperatorEvaluationStrategy
 from .common.kernel import (
     BoundaryInput,
@@ -31,15 +31,19 @@ from .mesh.core import ElementBlock, Mesh
 from .mesh.generators import (
     CubeMeshIds,
     CylinderInChannel2DIds,
+    SquareMeshIds,
     extrude_to_3d,
     graded_distribution,
     make_cube_mesh,
     make_cylinder_in_channel_2d,
     make_cylinder_in_channel_3d,
+    make_line_mesh,
+    make_square_mesh,
 )
 from .mesh.traits import ElementType
 from .solve.interface import IterSolveResult, IterSolverOpts
 from .solve.krylov import CG
+from .solve.lowordermg import LowOrderMG
 from .solve.precond import Identity, Jacobi
 
 __version__ = "0.1.0"

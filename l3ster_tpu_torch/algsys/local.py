@@ -7,11 +7,11 @@ The least-squares normal equations for the first-order system
 
 where ``M_q[:, (n,u)] = sum_d A_d(x_q)[:, u] * B_d[q, n]`` with ``B_0`` the
 basis values and ``B_d`` the physical basis derivatives.  This module ports
-what the matrix-free system needs: geometry, the batched kernel evaluation,
-the right-hand side and operator diagonal (direct and sum-factorized), and
-the local applies of the gather-based paths (direct, dense-basis and
-sum-factorized, constant A).  Everything is batched over elements (leading
-axis E).
+geometry, the batched kernel evaluation, the local matrices of the assembled
+system (``local_system``), the right-hand side and operator diagonal (direct
+and sum-factorized), and the local applies of the gather-based paths
+(direct, dense-basis and sum-factorized, constant A).  Everything is batched
+over elements (leading axis E).
 
 Local DOF ordering is node-major: local dof = node * n_unknowns + unknown.
 """
@@ -46,6 +46,7 @@ __all__ = [
     "local_apply_direct",
     "local_apply_dense_const",
     "local_apply_sumfact_const",
+    "local_system",
     "local_rhs",
     "local_diagonal",
     "local_rhs_sumfact",
@@ -202,6 +203,37 @@ def local_apply_direct(
     r = torch.einsum("eqdiu,eqdu->eqi", A, g)
     t = torch.einsum("eqdiu,eqi->eqdu", A, r * weights[:, :, None])
     return torch.einsum("eqdn,eqdu->enu", B, t)
+
+
+def local_system(
+    kernel, tables: DomainTables, geom: ElementGeometry, time=0.0, qp_chunk: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Local LSFEM matrices K (E, n_loc, n_loc) and rhs F (E, n_loc, n_rhs).
+
+    ``qp_chunk`` bounds the materialized M tensor: QPs are processed in
+    chunks of that size, accumulating K and F (the reference's ``lax.scan``,
+    ``EvaluateLocalOperator.hpp:37-52``'s cache-blocked batching).  Weights
+    are folded in as sqrt(w) on M, so K = (sqrt(w) M)^T (sqrt(w) M) needs one
+    M-sized operand; quadrature weights and valid-element Jacobians are
+    positive, so sqrt(w) is exact."""
+    p = kernel.params
+    A, f = eval_equation_kernel(kernel, geom, time)
+    B = _basis_stack(tables, geom)
+    E, Q = geom.weights.shape
+    n_loc = tables.values.shape[1] * p.n_unknowns
+    K = torch.zeros((E, n_loc, n_loc), dtype=A.dtype, device=A.device)
+    F = torch.zeros((E, n_loc, p.n_rhs), dtype=A.dtype, device=A.device)
+    step = Q if qp_chunk is None or qp_chunk >= Q else qp_chunk
+    for s in range(0, Q, step):
+        sl = slice(s, s + step)
+        M = torch.einsum("eqdiu,eqdn->eqinu", A[:, sl], B[:, sl])  # (E, q, n_eq, n_nodes, n_unk)
+        q = M.shape[1]
+        sw = geom.weights[:, sl].clamp(min=0.0).sqrt()
+        Ms = (M.reshape(E, q, p.n_equations, n_loc) * sw[:, :, None, None]).reshape(E, q * p.n_equations, n_loc)
+        fs = (f[:, sl] * sw[:, :, None, None]).reshape(E, q * p.n_equations, p.n_rhs)
+        K += torch.bmm(Ms.transpose(1, 2), Ms)
+        F += torch.bmm(Ms.transpose(1, 2), fs)
+    return K, F
 
 
 def local_rhs(A: torch.Tensor, B: torch.Tensor, weights: torch.Tensor, f: torch.Tensor) -> torch.Tensor:

@@ -1,25 +1,36 @@
-"""Matrix-free algebraic system (PyTorch port of ``l3ster_tpu.algsys.system``).
+"""Algebraic systems (PyTorch port of ``l3ster_tpu.algsys.system``).
 
-Two families of :class:`MatrixFreeSystem` operator contributions are ported:
+:class:`_SystemBase` holds what every system shares: the dof map, the
+Dirichlet dofs and values, the assembly state machine and its registered
+contributions, SPD-preserving Dirichlet masking around the raw operator,
+and the layout helpers.  Two systems build on it:
 
-* the lattice family: a 3D volume kernel on a structured lattice block runs
-  as global banded sweeps around the fused z-sweep
-  (``ops/lattice_sumfact.py``), with its constant A baked into the kernel
-  (``lattice_sf_const[_diag]``) or, when A varies in space, its nonzero
-  (d, i, u) planes streamed per QP (``lattice_sf_var``); value-only boundary
-  kernels on full lattice sides run as banded face sweeps;
-* the gather family, for any mesh: element values are gathered through the
-  dof map, a local apply runs per element batch, and ``index_add_`` scatters
-  the result.  Constant-coefficient volume kernels take the dense-basis
-  apply (``dense_const``: two matmuls around the per-QP kernel), the
-  sum-factorized one (``sumfact_const``) or the fused sum-factorized kernel
-  (``pallas``); boundary kernels and order-1 volumes take the direct apply.
+* :class:`AssembledSystem` holds an explicit CSR matrix: local LSFEM
+  matrices (``local_system``) are scattered with ``index_add_`` into the
+  values of a host-built sparsity pattern, and the SpMV is a sparse CSR
+  product (condensation is not ported);
+* :class:`MatrixFreeSystem` keeps the contributions and applies them
+  without a matrix, in two families:
 
-The local evaluation strategy follows the reference's ladder, on every
-device: AUTO takes the lattice kinds when the volume block is a lattice,
-else the dense apply at order >= 2.  Variable-coefficient volume kernels on
-the dense and sum-factorized paths raise ``NotImplementedError`` and name
-their ``ROADMAP.md`` entry.  The lattice pipeline (``"v2"``, or the
+  - the lattice family: a 3D volume kernel on a structured lattice block
+    runs as global banded sweeps around the fused z-sweep
+    (``ops/lattice_sumfact.py``), with its constant A baked into the kernel
+    (``lattice_sf_const[_diag]``) or, when A varies in space, its nonzero
+    (d, i, u) planes streamed per QP (``lattice_sf_var``); value-only
+    boundary kernels on full lattice sides run as banded face sweeps;
+  - the gather family, for any mesh: element values are gathered through
+    the dof map, a local apply runs per element batch, and ``index_add_``
+    scatters the result.  Constant-coefficient volume kernels take the
+    dense-basis apply (``dense_const``: two matmuls around the per-QP
+    kernel), the sum-factorized one (``sumfact_const``) or the fused
+    sum-factorized kernel (``pallas``); boundary kernels and order-1
+    volumes take the direct apply.
+
+The matrix-free local evaluation strategy follows the reference's ladder, on
+every device: AUTO takes the lattice kinds when the volume block is a 3D
+lattice, else the dense apply at order >= 2.  Variable-coefficient volume
+kernels on the dense and sum-factorized paths raise ``NotImplementedError``
+and name their ``ROADMAP.md`` entry.  The lattice pipeline (``"v2"``, or the
 reference's opt-in ``"v1"`` and ``"xy"``) is read from the environment once,
 when the operator is built (``ops.lattice_sumfact.lattice_variant``).
 
@@ -33,6 +44,7 @@ computed once per assembly, on first use.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
@@ -55,12 +67,14 @@ from .local import (
     local_diagonal_sumfact,
     local_rhs,
     local_rhs_sumfact,
+    local_system,
     side_tables,
 )
 
-__all__ = ["MatrixFreeSystem", "make_algebraic_system"]
+__all__ = ["AssembledSystem", "MatrixFreeSystem", "make_algebraic_system"]
 
 _LATTICE_KINDS = ("lattice_sf_const", "lattice_sf_const_diag", "lattice_sf_var")
+_MODES = ("both", "rhs", "operator")
 
 
 @dataclass
@@ -75,8 +89,11 @@ class _Contribution:
     options: AssemblyOptions
     block: object = None  # source ElementBlock
     elem_sel: np.ndarray | None = None  # indices into the block (boundary views)
+    mode: str = "both"  # "both" | "rhs" | "operator"
     dof_inds: tuple = ()
-    op_data: tuple | None = None  # x-independent operator data, built on first use
+    domain_id: int = -1  # volume domain (parent domain for boundary buckets)
+    boundary_id: int | None = None  # the boundary id the bucket came from
+    op_data: tuple | None = None  # matrix-free: x-independent operator data, built on first use
 
 
 # -------------------------------------------------------------- constant kernels
@@ -193,8 +210,8 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-class MatrixFreeSystem:
-    """Operator-only system (``algsys/MatrixFreeSystem.hpp``): lattice and gather families."""
+class _SystemBase:
+    """State and behaviour shared by the assembled and matrix-free systems."""
 
     def __init__(
         self,
@@ -206,7 +223,7 @@ class MatrixFreeSystem:
         device=None,
     ):
         if params.cond_policy != CondensationPolicy.NONE:
-            raise NotImplementedError("static condensation is not ported (ROADMAP.md queue A8)")
+            raise NotImplementedError("static condensation is not ported (ROADMAP.md queue A8, condensation)")
         if bc_def is not None and (bc_def.periodic or bc_def.normalized_dofs):
             raise NotImplementedError(
                 "periodic and normalization conditions are not ported (ROADMAP.md queue A1)"
@@ -223,6 +240,7 @@ class MatrixFreeSystem:
         self.dirichlet_dofs = collect_dirichlet_dofs(mesh, self.dofmap, bc_def)
         free = np.ones(self.n_dofs, dtype=bool)
         free[self.dirichlet_dofs] = False
+        self._free_np = free
         self.free_mask = self._tensor(free.astype(np.float64))
         self.dirichlet_values = self._tensor(np.zeros((len(self.dirichlet_dofs), self.n_rhs)))
         self.rhs = self._zeros((self.n_dofs, self.n_rhs))
@@ -230,9 +248,7 @@ class MatrixFreeSystem:
         self._open = False
         self._effective_rhs = None
         self._contribs: list[_Contribution] = []
-        self._diag = None
-        self._ops = None  # (lattice_key, [(contribution, op_data)]) once built
-        self._variant = "v2"  # lattice pipeline, read from the environment with the operator
+        self._assembly_epoch = 0  # bumped by end_assembly; keys preconditioner setups
         self._last_solve_result = None
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
@@ -248,8 +264,16 @@ class MatrixFreeSystem:
         self._effective_rhs = None
         self.rhs = self._zeros((self.n_dofs, self.n_rhs))
         self._contribs = []
-        self._diag = None
-        self._ops = None
+        self._begin_impl()
+
+    def end_assembly(self) -> None:
+        if not self._open:
+            raise RuntimeError("end_assembly without begin_assembly")
+        self._end_impl()
+        self._open = False
+        # operator values changed: preconditioner setups keyed on the old
+        # epoch are stale (solve/krylov.py:_precond_parts)
+        self._assembly_epoch += 1
 
     def assemble_problem(
         self,
@@ -259,33 +283,49 @@ class MatrixFreeSystem:
         dof_inds=None,
         options: AssemblyOptions = AssemblyOptions(),
         time: float = 0.0,
+        mode: str = "both",
     ) -> None:
-        """Register an equation kernel over domains or boundaries."""
+        """Register (and, assembled, add) an equation kernel over domains or
+        boundaries; ``mode`` "rhs" or "operator" contributes only that part."""
         if not self._open:
             raise RuntimeError("assemble_problem requires an open assembly (call begin_assembly)")
         if field_access is not None:
             raise NotImplementedError("field access is not ported (ROADMAP.md queue A5)")
+        if mode not in _MODES:
+            raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
         p = kernel.params
         if p.n_rhs != self.n_rhs:
             raise ValueError(f"kernel n_rhs={p.n_rhs} != system n_rhs={self.n_rhs}")
         dof_inds = tuple(range(p.n_unknowns)) if dof_inds is None else tuple(dof_inds)
         if len(dof_inds) != p.n_unknowns:
             raise ValueError("dof_inds length must equal kernel n_unknowns")
-        for tables, verts, nodes, block, sel in self._buckets(kernel, domain_ids, options):
+        for tables, verts, nodes, block, sel, did, bid in self._buckets(kernel, domain_ids, options):
             elem_dofs = self.dofmap.element_dofs(nodes, dof_inds)
             if not (elem_dofs >= 0).all():
                 raise ValueError(
                     f"kernel dof indices {dof_inds} not all active on the assembled domains"
                 )
-            self._contribs.append(
-                _Contribution(
-                    kernel=kernel, tables=tables, verts=verts, elem_dofs=elem_dofs, time=time,
-                    options=options, block=block, elem_sel=sel, dof_inds=dof_inds,
-                )
+            c = _Contribution(
+                kernel=kernel, tables=tables, verts=verts, elem_dofs=elem_dofs, time=time,
+                options=options, block=block, elem_sel=sel, mode=mode, dof_inds=dof_inds,
+                domain_id=did, boundary_id=bid,
             )
+            self._contribs.append(c)
+            self._add_contribution(c)
+
+    def init_problem(self, kernel, domain_ids, field_access=None, dof_inds=None,
+                     options: AssemblyOptions = AssemblyOptions(), time: float = 0.0) -> None:
+        """Contribute only the right-hand side (``initProblem`` analog)."""
+        self.assemble_problem(kernel, domain_ids, field_access, dof_inds, options, time, mode="rhs")
+
+    def define_operator(self, kernel, domain_ids, field_access=None, dof_inds=None,
+                        options: AssemblyOptions = AssemblyOptions(), time: float = 0.0) -> None:
+        """Contribute only the operator (``defineOperator`` analog)."""
+        self.assemble_problem(kernel, domain_ids, field_access, dof_inds, options, time, mode="operator")
 
     def _buckets(self, kernel, domain_ids, options: AssemblyOptions):
-        """Yield (tables, verts, nodes, block, sel) for each bucket to assemble."""
+        """Yield (tables, verts, nodes, block, sel, domain id, boundary id) for
+        each bucket to assemble."""
         if kernel.is_boundary:
             found = False
             for bid in domain_ids:
@@ -297,7 +337,7 @@ class MatrixFreeSystem:
                     qo = options.quadrature_order(blk.order)
                     tab = side_tables(blk.element_type, blk.order, bv.side, qo)
                     sel = bv.element_indices
-                    yield tab, blk.vertices[sel], blk.nodes[sel], blk, sel
+                    yield tab, blk.vertices[sel], blk.nodes[sel], blk, sel, bv.parent_domain, bid
                     found = True
             if not found:
                 raise ValueError(f"no boundary facets in domains {list(domain_ids)}")
@@ -312,75 +352,24 @@ class MatrixFreeSystem:
                         f"{blk.dim}D elements of domain {did}"
                     )
                 qo = options.quadrature_order(blk.order)
-                yield domain_tables(blk.element_type, blk.order, qo), blk.vertices, blk.nodes, blk, None
+                yield domain_tables(blk.element_type, blk.order, qo), blk.vertices, blk.nodes, blk, None, did, None
 
-    def end_assembly(self) -> None:
-        """The rhs and operator diagonal in one pass (``MatrixFreeSystem.hpp:887-941``);
-        large contributions run in element chunks to bound the (E, Q, ...) intermediates."""
-        if not self._open:
-            raise RuntimeError("end_assembly without begin_assembly")
-        rhs = self._zeros((self.n_dofs, self.n_rhs))
-        diag = self._zeros((self.n_dofs,))
-        for c in self._contribs:
-            use_sf = self._use_sumfact(c)
-            E = c.verts.shape[0]
-            chunk = int(max(1, (1 << 25) // max(c.tables.n_qp * 128, 1)))
-            q_order = c.options.quadrature_order(c.tables.order)
-            for s in range(0, E, chunk):
-                geom = element_geometry(
-                    c.tables, self._tensor(c.verts[s : s + chunk]), with_phys_ders=not use_sf
-                )
-                A, f = eval_equation_kernel(c.kernel, geom, c.time)
-                if use_sf:
-                    F = local_rhs_sumfact(A, geom, c.tables.order, q_order, c.tables.dim, f)
-                    d = local_diagonal_sumfact(A, geom, c.tables.order, q_order, c.tables.dim)
-                else:
-                    B = _basis_stack(c.tables, geom)
-                    F = local_rhs(A, B, geom.weights, f)
-                    d = local_diagonal(A, B, geom.weights)
-                idx = torch.as_tensor(c.elem_dofs[s : s + chunk].reshape(-1), device=self.device)
-                rhs.index_add_(0, idx, F.reshape(-1, self.n_rhs))
-                diag.index_add_(0, idx, d.reshape(-1))
-        self.rhs, self._diag = rhs, diag
-        self._open = False
+    # subclass hooks
+    def _begin_impl(self) -> None:
+        raise NotImplementedError
 
-    @staticmethod
-    def _use_sumfact(c: _Contribution) -> bool:
-        """Sum-factorized rhs/diagonal (and apply, on the sum-factorized kinds) for
-        volume Quad/Hex contributions: forced by SUM_FACT / SUM_FACT_PALLAS, else
-        at p >= 2 unless DIRECT is asked for; boundaries are direct."""
-        from ..ops.sumfact import supports_sumfact
+    def _add_contribution(self, c: _Contribution) -> None:
+        """Called for each registered contribution (the matrix-free system
+        only keeps it, in ``_contribs``)."""
 
-        strat = c.options.eval_strategy
-        if c.tables.side is not None or strat == LocalEvalStrategy.DIRECT:
-            return False
-        if strat in (LocalEvalStrategy.SUM_FACT, LocalEvalStrategy.SUM_FACT_PALLAS):
-            if not supports_sumfact(c.tables.element_type):
-                raise ValueError("sum factorization requires tensor-product Quad/Hex elements")
-            return True
-        return supports_sumfact(c.tables.element_type) and c.tables.order >= 2
+    def _end_impl(self) -> None:
+        raise NotImplementedError
 
-    def _use_lattice_sf(self, c: _Contribution) -> bool:
-        """Global banded sweeps: LATTICE_SF (which requires a lattice block), or
-        AUTO when the volume block is a lattice."""
-        strat = c.options.eval_strategy
-        if c.tables.side is not None or strat not in (LocalEvalStrategy.AUTO, LocalEvalStrategy.LATTICE_SF):
-            return False
-        plan = self._lattice_plan(c)
-        if plan is None and strat == LocalEvalStrategy.LATTICE_SF:
-            raise ValueError("LATTICE_SF requires a structured-lattice mesh block")
-        return plan is not None
+    def raw_parts(self, layout: str = "dof"):
+        raise NotImplementedError
 
-    @staticmethod
-    def _use_dense(c: _Contribution) -> bool:
-        """Dense basis-matrix apply: DENSE_MXU, or AUTO at p >= 2 (the
-        reference's AUTO on its accelerator, taken here on every device)."""
-        strat = c.options.eval_strategy
-        if c.tables.side is not None:
-            return False
-        return strat == LocalEvalStrategy.DENSE_MXU or (
-            strat == LocalEvalStrategy.AUTO and c.tables.order >= 2
-        )
+    def diagonal(self) -> torch.Tensor:
+        raise NotImplementedError
 
     # -- Dirichlet values (``AssembledSystem.hpp:158-286`` analog) ------------
 
@@ -450,6 +439,185 @@ class MatrixFreeSystem:
         self.dirichlet_values = out
         self._effective_rhs = None
 
+
+    # -- solve-side interface --------------------------------------------------
+
+    def lattice_layout_key(self):
+        """(n1, n_rows, n_unk) when the operator can run on channel-major
+        vectors (see MatrixFreeSystem); None otherwise."""
+        return None
+
+    def to_lattice_layout(self, v: torch.Tensor) -> torch.Tensor:
+        """dof-major (node*n_unk+u) -> channel-major (u*n_rows+node) rows."""
+        key = self.lattice_layout_key()
+        if key is None:
+            raise ValueError("system has no lattice layout")
+        return to_lattice_layout(v, key[2])
+
+    def from_lattice_layout(self, v: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`to_lattice_layout`."""
+        key = self.lattice_layout_key()
+        if key is None:
+            raise ValueError("system has no lattice layout")
+        return from_lattice_layout(v, key[2])
+
+    def operator_parts(self, layout: str = "dof"):
+        """(fn, consts): constrained SPD operator as fn(x, *consts).
+
+        ``layout="lattice"`` runs on CHANNEL-MAJOR vectors (dof' = unknown *
+        n_nodes + node), which the lattice apply views as its tensor without a
+        transpose; callers own the layout conversion (once per solve)."""
+        fn, consts = self.raw_parts(layout)
+        free = self.to_lattice_layout(self.free_mask) if layout == "lattice" else self.free_mask
+        fixed = 1.0 - free
+
+        def apply(x, *consts):
+            return fn(x * free[:, None], *consts) * free[:, None] + x * fixed[:, None]
+
+        return apply, consts
+
+    def operator(self):
+        """Constrained SPD operator: y = free*A(free*x) + dir*x (dof layout)."""
+        fn, consts = self.operator_parts()
+        return lambda x: fn(x, *consts)
+
+    def dirichlet_extension(self) -> torch.Tensor:
+        """g_ext: zeros with Dirichlet values on Dirichlet dofs; (n_dofs, n_rhs)."""
+        g = self._zeros((self.n_dofs, self.n_rhs))
+        if len(self.dirichlet_dofs):
+            g[torch.as_tensor(self.dirichlet_dofs, device=self.device)] = self.dirichlet_values
+        return g
+
+    def effective_rhs(self) -> torch.Tensor:
+        """b_eff = free * (rhs - A(g_ext)) + g_ext."""
+        if self._effective_rhs is None:
+            fn, consts = self.raw_parts()
+            g = self.dirichlet_extension()
+            self._effective_rhs = self.free_mask[:, None] * (self.rhs - fn(g, *consts)) + g
+        return self._effective_rhs
+
+    def solution_vector(self) -> torch.Tensor:
+        return self.x
+
+    def set_solution_vector(self, x: torch.Tensor) -> None:
+        self.x = x.reshape(self.n_dofs, self.n_rhs)
+
+    def solve(self, solver):
+        """Run a solver object; returns its IterSolveResult."""
+        return solver.solve(self)
+
+    def _describe_extra(self) -> str:
+        return ""
+
+    def describe(self) -> str:
+        s = (
+            f"{type(self).__name__}: {self.n_dofs} dofs, {self.n_rhs} rhs, "
+            f"{len(self.dirichlet_dofs)} Dirichlet dofs, dtype={self.dtype}, "
+            f"device={self.device}{self._describe_extra()}"
+        )
+        r = self._last_solve_result
+        if r is not None:
+            state = "converged" if r.converged else ("CAPPED (max_iters)" if r.capped else "NOT converged")
+            s += f"; last solve: {r.num_iters} iters, res {r.tol:.2e}, {state}"
+        return s
+
+
+class MatrixFreeSystem(_SystemBase):
+    """Operator-only system (``algsys/MatrixFreeSystem.hpp``): lattice and gather families."""
+
+    def __init__(
+        self,
+        mesh: Mesh,
+        problem: ProblemDefinition,
+        bc_def: BCDefinition | None = None,
+        params: AlgebraicSystemParams = AlgebraicSystemParams(),
+        dtype=torch.float32,
+        device=None,
+    ):
+        super().__init__(mesh, problem, bc_def, params, dtype, device)
+        self._diag = None
+        self._ops = None  # (lattice_key, [(contribution, op_data)]) once built
+        self._variant = "v2"  # lattice pipeline, read from the environment with the operator
+
+    def _begin_impl(self) -> None:
+        self._diag = None
+        self._ops = None
+
+    def _end_impl(self) -> None:
+        """The rhs and operator diagonal in one pass (``MatrixFreeSystem.hpp:887-941``),
+        each only where the contribution's mode asks for it; large contributions
+        run in element chunks to bound the (E, Q, ...) intermediates."""
+        rhs = self._zeros((self.n_dofs, self.n_rhs))
+        diag = self._zeros((self.n_dofs,))
+        for c in self._contribs:
+            use_sf = self._use_sumfact(c)
+            E = c.verts.shape[0]
+            chunk = int(max(1, (1 << 25) // max(c.tables.n_qp * 128, 1)))
+            q_order = c.options.quadrature_order(c.tables.order)
+            for s in range(0, E, chunk):
+                geom = element_geometry(
+                    c.tables, self._tensor(c.verts[s : s + chunk]), with_phys_ders=not use_sf
+                )
+                A, f = eval_equation_kernel(c.kernel, geom, c.time)
+                B = None if use_sf else _basis_stack(c.tables, geom)
+                idx = torch.as_tensor(c.elem_dofs[s : s + chunk].reshape(-1), device=self.device)
+                if c.mode != "operator":
+                    if use_sf:
+                        F = local_rhs_sumfact(A, geom, c.tables.order, q_order, c.tables.dim, f)
+                    else:
+                        F = local_rhs(A, B, geom.weights, f)
+                    rhs.index_add_(0, idx, F.reshape(-1, self.n_rhs))
+                if c.mode != "rhs":
+                    if use_sf:
+                        d = local_diagonal_sumfact(A, geom, c.tables.order, q_order, c.tables.dim)
+                    else:
+                        d = local_diagonal(A, B, geom.weights)
+                    diag.index_add_(0, idx, d.reshape(-1))
+        self.rhs, self._diag = rhs, diag
+
+    @staticmethod
+    def _use_sumfact(c: _Contribution) -> bool:
+        """Sum-factorized rhs/diagonal (and apply, on the sum-factorized kinds) for
+        volume Quad/Hex contributions: forced by SUM_FACT / SUM_FACT_PALLAS, else
+        at p >= 2 unless DIRECT is asked for; boundaries are direct."""
+        from ..ops.sumfact import supports_sumfact
+
+        strat = c.options.eval_strategy
+        if c.tables.side is not None or strat == LocalEvalStrategy.DIRECT:
+            return False
+        if strat in (LocalEvalStrategy.SUM_FACT, LocalEvalStrategy.SUM_FACT_PALLAS):
+            if not supports_sumfact(c.tables.element_type):
+                raise ValueError("sum factorization requires tensor-product Quad/Hex elements")
+            return True
+        return supports_sumfact(c.tables.element_type) and c.tables.order >= 2
+
+    def _use_lattice_sf(self, c: _Contribution) -> bool:
+        """Global banded sweeps: LATTICE_SF (which requires a 3D lattice block),
+        or AUTO when the volume block is a 3D lattice.  The port has no 2D
+        lattice apply, so AUTO goes down the ladder in 2D."""
+        strat = c.options.eval_strategy
+        if c.tables.side is not None or strat not in (LocalEvalStrategy.AUTO, LocalEvalStrategy.LATTICE_SF):
+            return False
+        if c.tables.dim != 3:
+            if strat == LocalEvalStrategy.LATTICE_SF:
+                raise NotImplementedError("2D lattice apply is not ported (ROADMAP.md queue A4)")
+            return False
+        plan = self._lattice_plan(c)
+        if plan is None and strat == LocalEvalStrategy.LATTICE_SF:
+            raise ValueError("LATTICE_SF requires a structured-lattice mesh block")
+        return plan is not None
+
+    @staticmethod
+    def _use_dense(c: _Contribution) -> bool:
+        """Dense basis-matrix apply: DENSE_MXU, or AUTO at p >= 2 (the
+        reference's AUTO on its accelerator, taken here on every device)."""
+        strat = c.options.eval_strategy
+        if c.tables.side is not None:
+            return False
+        return strat == LocalEvalStrategy.DENSE_MXU or (
+            strat == LocalEvalStrategy.AUTO and c.tables.order >= 2
+        )
+
     # -- operator data ----------------------------------------------------------
 
     def _row_plan(self, c: _Contribution):
@@ -474,12 +642,13 @@ class MatrixFreeSystem:
         return detect_lattice_plan(rows[0], rows[1], c.tables.order, c.tables.dim)
 
     def _face_plan(self, c: _Contribution, ns):
-        """Slicing plan of a boundary bucket covering one full side of a lattice
-        block, restricted to the side's surface nodes ``ns``; None otherwise."""
+        """Slicing plan of a boundary bucket covering one full side of a 3D
+        lattice block, restricted to the side's surface nodes ``ns``; None
+        otherwise (the port's banded face sweep is the 3D one)."""
         from ..ops.lattice import detect_face_plan, detect_lattice_plan
 
         n_unk = len(c.dof_inds)
-        if self.n_dofs % n_unk:
+        if c.tables.dim != 3 or self.n_dofs % n_unk:
             return None
         full_dofs = self.dofmap.element_dofs(c.block.nodes, c.dof_inds)
         starts = full_dofs[:, :, 0]
@@ -584,8 +753,6 @@ class MatrixFreeSystem:
         from ..ops.zsweep import detect_diag_geometry
 
         plan = self._lattice_plan(c)
-        if c.tables.dim != 3:
-            raise NotImplementedError("2D lattice apply is not ported (ROADMAP.md queue A4)")
         A_const = _constant_kernel_operators(c.kernel, c.time)
         n1, ne, _, inv = plan
         q1 = c.options.quadrature_order(c.tables.order) // 2 + 1
@@ -684,6 +851,8 @@ class MatrixFreeSystem:
             self._variant = lattice_variant()
             ops, keys = [], set()
             for c in self._contribs:
+                if c.mode == "rhs":
+                    continue
                 d = self._operator_data(c)
                 if d[0] == "zero":
                     continue
@@ -701,20 +870,6 @@ class MatrixFreeSystem:
         """(n1, n_rows, n_unk) when every operator contribution runs on one
         shared channel-leading lattice tensor; None otherwise."""
         return self._operators()[0]
-
-    def to_lattice_layout(self, v: torch.Tensor) -> torch.Tensor:
-        """dof-major (node*n_unk+u) -> channel-major (u*n_rows+node) rows."""
-        key = self.lattice_layout_key()
-        if key is None:
-            raise ValueError("system has no lattice layout")
-        return to_lattice_layout(v, key[2])
-
-    def from_lattice_layout(self, v: torch.Tensor) -> torch.Tensor:
-        """Inverse of :meth:`to_lattice_layout`."""
-        key = self.lattice_layout_key()
-        if key is None:
-            raise ValueError("system has no lattice layout")
-        return from_lattice_layout(v, key[2])
 
     def _local_apply(self, c: _Contribution, d, x_loc: torch.Tensor) -> torch.Tensor:
         """y_loc (E, n_sel, n_unk) of one gather-family contribution."""
@@ -839,66 +994,154 @@ class MatrixFreeSystem:
             raise ValueError("lattice layout unavailable for this operator")
         return (lambda x, *consts: self._apply(x, lattice_io)), ()
 
-    def operator_parts(self, layout: str = "dof"):
-        """(fn, consts): constrained SPD operator as fn(x, *consts).
-
-        ``layout="lattice"`` runs on CHANNEL-MAJOR vectors (dof' = unknown *
-        n_nodes + node), which the lattice apply views as its tensor without a
-        transpose; callers own the layout conversion (once per solve)."""
-        fn, consts = self.raw_parts(layout)
-        free = self.to_lattice_layout(self.free_mask) if layout == "lattice" else self.free_mask
-        fixed = 1.0 - free
-
-        def apply(x, *consts):
-            return fn(x * free[:, None], *consts) * free[:, None] + x * fixed[:, None]
-
-        return apply, consts
-
-    def operator(self):
-        """Constrained SPD operator: y = free*A(free*x) + dir*x (dof layout)."""
-        fn, consts = self.operator_parts()
-        return lambda x: fn(x, *consts)
-
-    def dirichlet_extension(self) -> torch.Tensor:
-        """g_ext: zeros with Dirichlet values on Dirichlet dofs; (n_dofs, n_rhs)."""
-        g = self._zeros((self.n_dofs, self.n_rhs))
-        if len(self.dirichlet_dofs):
-            g[torch.as_tensor(self.dirichlet_dofs, device=self.device)] = self.dirichlet_values
-        return g
-
-    def effective_rhs(self) -> torch.Tensor:
-        """b_eff = free * (rhs - A(g_ext)) + g_ext."""
-        if self._effective_rhs is None:
-            g = self.dirichlet_extension()
-            self._effective_rhs = self.free_mask[:, None] * (self.rhs - self._apply(g, False)) + g
-        return self._effective_rhs
-
     def diagonal(self) -> torch.Tensor:
         if self._diag is None:
             raise RuntimeError("diagonal available after end_assembly")
         return self._diag * self.free_mask + (1.0 - self.free_mask)
 
-    def solution_vector(self) -> torch.Tensor:
-        return self.x
+    def _describe_extra(self) -> str:
+        return f", {len(self._contribs)} matrix-free contributions"
 
-    def set_solution_vector(self, x: torch.Tensor) -> None:
-        self.x = x.reshape(self.n_dofs, self.n_rhs)
 
-    def solve(self, solver):
-        """Run a solver object; returns its IterSolveResult."""
-        return solver.solve(self)
+# local assembly bounds the (E, Q * n_eq, n_loc) M tensor of a chunk of
+# elements to this many entries
+_M_ENTRIES = 1 << 26
 
-    def describe(self) -> str:
-        s = (
-            f"MatrixFreeSystem: {self.n_dofs} dofs, {self.n_rhs} rhs, "
-            f"{len(self.dirichlet_dofs)} Dirichlet dofs, dtype={self.dtype}, "
-            f"device={self.device}, {len(self._contribs)} matrix-free contributions"
+
+def _csr_apply(x, A):
+    return A @ x
+
+
+class AssembledSystem(_SystemBase):
+    """Explicit CSR system (``algsys/AssembledSystem.hpp``), without static
+    condensation.  The sparsity pattern and the scatter positions are built
+    on the host in numpy; local matrices are computed on the device in
+    element chunks (the reference takes a block at once) and scattered into
+    ``data`` with ``index_add_``; the SpMV is the CSR product ``A @ x``."""
+
+    def __init__(
+        self,
+        mesh: Mesh,
+        problem: ProblemDefinition,
+        bc_def: BCDefinition | None = None,
+        params: AlgebraicSystemParams = AlgebraicSystemParams(),
+        dtype=torch.float32,
+        device=None,
+    ):
+        super().__init__(mesh, problem, bc_def, params, dtype, device)
+        self._build_sparsity()
+        self.data = self._zeros((self.nnz,))
+        self._pos_cache: OrderedDict[bytes, np.ndarray] = OrderedDict()
+        self._csr = None
+
+    # -- sparsity (``algsys/SparsityGraph.hpp`` analog, host-side) ------------
+
+    def _build_sparsity(self) -> None:
+        keys_parts = [np.arange(self.n_dofs, dtype=np.int64) * self.n_dofs + np.arange(self.n_dofs)]
+        for domain_ids, mask in self.problem.entries:
+            dof_cols = np.nonzero(mask)[0]
+            for _, blk in self.mesh.blocks(domain_ids):
+                dofs = self.dofmap.node_dof[blk.nodes][:, :, dof_cols].reshape(blk.n_elements, -1)
+                dofs = dofs[:, (dofs >= 0).all(axis=0)] if (dofs < 0).any() else dofs
+                L = dofs.shape[1]
+                chunk = max(1, 2**22 // max(L * L, 1))  # element chunks bound the host memory
+                for s in range(0, dofs.shape[0], chunk):
+                    d = dofs[s : s + chunk]
+                    r = np.repeat(d, L, axis=1).reshape(-1)
+                    ccol = np.tile(d, (1, L)).reshape(-1)
+                    keys_parts.append(np.unique(r * self.n_dofs + ccol))
+        keys = np.unique(np.concatenate(keys_parts))
+        self._keys = keys
+        self.nnz = len(keys)
+        self._rows = keys // self.n_dofs
+        self._cols = keys % self.n_dofs
+        self._indptr = np.concatenate([[0], np.cumsum(np.bincount(self._rows, minlength=self.n_dofs))])
+        self._diag_pos = np.searchsorted(keys, np.arange(self.n_dofs, dtype=np.int64) * (self.n_dofs + 1))
+        dev = self.device
+        self._cols_dev = torch.as_tensor(self._cols, device=dev)
+        self._indptr_dev = torch.as_tensor(self._indptr, device=dev)
+        self._diag_pos_dev = torch.as_tensor(self._diag_pos, device=dev)
+
+    def _scatter_positions(self, elem_dofs: np.ndarray) -> np.ndarray:
+        """(E, L, L) positions in ``data`` of each element's local matrix;
+        a bounded LRU keyed by the element dofs."""
+        key = elem_dofs.tobytes()
+        hit = self._pos_cache.get(key)
+        if hit is not None:
+            self._pos_cache.move_to_end(key)
+            return hit
+        E = elem_dofs.shape[0]
+        flat = elem_dofs.reshape(E, -1)
+        L = flat.shape[1]
+        k = flat[:, :, None] * self.n_dofs + flat[:, None, :]
+        pos = np.searchsorted(self._keys, k.reshape(-1)).reshape(E, L, L)
+        if not np.array_equal(self._keys[np.minimum(pos.reshape(-1), self.nnz - 1)], k.reshape(-1)):
+            raise RuntimeError("element couples dofs outside the sparsity pattern")
+        while len(self._pos_cache) >= 16:
+            self._pos_cache.popitem(last=False)
+        self._pos_cache[key] = pos
+        return pos
+
+    def _begin_impl(self) -> None:
+        self.data = self._zeros((self.nnz,))
+        self._csr = None
+
+    def _local_kf(self, c: _Contribution, sel: slice):
+        """(K (E, L, L) or None, F (E, L, n_rhs) or None) of the elements
+        ``sel`` of a contribution, as its mode asks."""
+        geom = element_geometry(c.tables, self._tensor(c.verts[sel]))
+        if c.mode == "rhs":
+            A, f = eval_equation_kernel(c.kernel, geom, c.time)
+            F = local_rhs(A, _basis_stack(c.tables, geom), geom.weights, f)
+            return None, F.reshape(F.shape[0], -1, self.n_rhs)
+        K, F = local_system(c.kernel, c.tables, geom, c.time)
+        return K, (None if c.mode == "operator" else F)
+
+    def _add_contribution(self, c: _Contribution) -> None:
+        E, n_nodes, n_unk = c.elem_dofs.shape
+        n_loc = n_nodes * n_unk
+        chunk = max(1, _M_ENTRIES // max(c.tables.n_qp * c.kernel.params.n_equations * n_loc, 1))
+        pos = None if c.mode == "rhs" else self._scatter_positions(c.elem_dofs)
+        for s in range(0, E, chunk):
+            sel = slice(s, s + chunk)
+            K, F = self._local_kf(c, sel)
+            if K is not None:
+                idx = torch.as_tensor(pos[sel].reshape(-1), device=self.device)
+                self.data.index_add_(0, idx, K.reshape(-1))
+            if F is not None:
+                idx = torch.as_tensor(c.elem_dofs[sel].reshape(-1), device=self.device)
+                self.rhs.index_add_(0, idx, F.reshape(-1, self.n_rhs))
+
+    def _end_impl(self) -> None:
+        self._csr = torch.sparse_csr_tensor(
+            self._indptr_dev, self._cols_dev, self.data, size=(self.n_dofs, self.n_dofs),
+            check_invariants=False,
         )
-        r = self._last_solve_result
-        if r is not None:
-            state = "converged" if r.converged else ("CAPPED (max_iters)" if r.capped else "NOT converged")
-            s += f"; last solve: {r.num_iters} iters, res {r.tol:.2e}, {state}"
-        return s
+
+    def raw_parts(self, layout: str = "dof"):
+        """(fn, (A,)): the unconstrained operator as the CSR product A @ x."""
+        if layout != "dof":
+            raise ValueError("AssembledSystem supports only the dof layout")
+        if self._csr is None:
+            raise RuntimeError("the operator is available after end_assembly")
+        return _csr_apply, (self._csr,)
+
+    def diagonal(self) -> torch.Tensor:
+        """The constrained operator's diagonal (unit on Dirichlet dofs)."""
+        d = self.data[self._diag_pos_dev]
+        return d * self.free_mask + (1.0 - self.free_mask)
+
+    def eliminated_csr(self):
+        """(data, indices, indptr, n): CSR of the Dirichlet-eliminated matrix,
+        data on the device, the structure as host numpy arrays."""
+        free = torch.as_tensor(self._free_np, device=self.device)
+        keep = free[torch.as_tensor(self._rows, device=self.device)] & free[self._cols_dev]
+        data = torch.where(keep, self.data, torch.zeros_like(self.data))
+        data = data.index_add(0, self._diag_pos_dev, 1.0 - self.free_mask)
+        return data, self._cols, self._indptr, self.n_dofs
+
+    def _describe_extra(self) -> str:
+        return f", nnz={self.nnz}"
 
 
 def make_algebraic_system(
@@ -909,12 +1152,9 @@ def make_algebraic_system(
     dtype=torch.float32,
     device=None,
 ):
-    """Factory (``algsys/MakeAlgebraicSystem.hpp:9-46``).  Runs on the CUDA
-    device unless ``device`` says otherwise; without CUDA it raises rather
-    than fall back to the CPU."""
-    if params.eval_strategy != OperatorEvaluationStrategy.MATRIX_FREE:
-        raise NotImplementedError(
-            "the assembled system is not ported (ROADMAP.md queue A8): "
-            "use OperatorEvaluationStrategy.MATRIX_FREE"
-        )
-    return MatrixFreeSystem(mesh, problem, bc_def, params, dtype, device)
+    """Factory (``algsys/MakeAlgebraicSystem.hpp:9-46``) dispatching on the
+    evaluation strategy.  Runs on the CUDA device unless ``device`` says
+    otherwise; without CUDA it raises rather than fall back to the CPU."""
+    if params.eval_strategy == OperatorEvaluationStrategy.MATRIX_FREE:
+        return MatrixFreeSystem(mesh, problem, bc_def, params, dtype, device)
+    return AssembledSystem(mesh, problem, bc_def, params, dtype, device)

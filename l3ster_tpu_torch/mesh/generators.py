@@ -1,11 +1,12 @@
-"""Built-in mesh generators: the cube and the cylinder in a channel.
+"""Built-in mesh generators: the line, square and cube, and the cylinder in a channel.
 
 Analogs of ``mesh/primitives/`` at order 1 with the reference's
-domain/boundary ids: ``CubeMesh.hpp:8-11`` (domain=0, back=1, front=2,
+domain/boundary ids: ``SquareMesh.hpp:8-11`` (domain=0, bottom=1, top=2,
+left=3, right=4), ``CubeMesh.hpp:8-11`` (domain=0, back=1, front=2,
 bottom=3, top=4, left=5, right=6) and ``CylinderInChannel2D.hpp:10-13``
 (domain=0, bottom=1, top=2, left=3, right=4, cylinder=5), extruded along z
 for ``CylinderInChannel3D.hpp`` with caps back=6, front=7.  All connectivity
-is vectorized numpy; cube node ids are lexicographic (x fastest), matching
+is vectorized numpy; square and cube node ids are lexicographic (x fastest), matching
 the reference generator's numbering.  Copied from ``l3ster_tpu.mesh.generators``
 so that both packages build the same meshes, node for node.
 """
@@ -20,8 +21,11 @@ from .core import ElementBlock, Mesh
 from .traits import ElementType
 
 __all__ = [
+    "SquareMeshIds",
     "CubeMeshIds",
     "CylinderInChannel2DIds",
+    "make_line_mesh",
+    "make_square_mesh",
     "make_cube_mesh",
     "make_cylinder_in_channel_2d",
     "make_cylinder_in_channel_3d",
@@ -34,6 +38,15 @@ _FLIP = {
     ElementType.QUAD: np.array([0, 2, 1, 3]),
     ElementType.HEX: np.array([0, 2, 1, 3, 4, 6, 5, 7]),
 }
+
+
+@dataclass(frozen=True)
+class SquareMeshIds:
+    domain: int = 0
+    bottom: int = 1
+    top: int = 2
+    left: int = 3
+    right: int = 4
 
 
 @dataclass(frozen=True)
@@ -52,6 +65,72 @@ def _as_dist(d) -> np.ndarray:
     if d.ndim != 1 or len(d) < 2:
         raise ValueError("node distribution must be a 1D array of at least 2 points")
     return d
+
+
+def make_line_mesh(distx, domain_id: int = 0, left_id: int | None = None, right_id: int | None = None) -> Mesh:
+    """1D line mesh.  Unlike the reference (which has no 0D boundary elements),
+    optional left/right boundary ids are not supported and kept for signature parity."""
+    distx = _as_dist(distx)
+    ne = len(distx) - 1
+    nodes = np.stack([np.arange(ne), np.arange(1, ne + 1)], axis=1).astype(np.int64)
+    verts = np.zeros((ne, 2, 3))
+    verts[:, 0, 0] = distx[:-1]
+    verts[:, 1, 0] = distx[1:]
+    coords = np.zeros((ne + 1, 3))
+    coords[:, 0] = distx
+    blk = ElementBlock(ElementType.LINE, 1, nodes, verts)
+    return Mesh(dim=1, n_nodes=ne + 1, node_coords=coords, domains={domain_id: [blk]})
+
+
+def make_square_mesh(distx, disty=None, ids: SquareMeshIds = SquareMeshIds()) -> Mesh:
+    """Unit-square-style structured quad mesh with 4 line boundaries."""
+    distx = _as_dist(distx)
+    disty = distx if disty is None else _as_dist(disty)
+    nx, ny = len(distx), len(disty)
+    ex, ey = nx - 1, ny - 1
+
+    # Global node ids: iy * nx + ix (x fastest), like the reference generator
+    X, Y = np.meshgrid(distx, disty, indexing="xy")  # shape (ny, nx)
+    coords = np.zeros((nx * ny, 3))
+    coords[:, 0] = X.reshape(-1)
+    coords[:, 1] = Y.reshape(-1)
+
+    ix, iy = np.meshgrid(np.arange(ex), np.arange(ey), indexing="xy")
+    ix, iy = ix.reshape(-1), iy.reshape(-1)
+    base = iy * nx + ix
+    qnodes = np.stack([base, base + 1, base + nx, base + nx + 1], axis=1).astype(np.int64)
+    qverts = np.zeros((ex * ey, 4, 3))
+    qverts[:, 0, 0], qverts[:, 0, 1] = distx[ix], disty[iy]
+    qverts[:, 1, 0], qverts[:, 1, 1] = distx[ix + 1], disty[iy]
+    qverts[:, 2, 0], qverts[:, 2, 1] = distx[ix], disty[iy + 1]
+    qverts[:, 3, 0], qverts[:, 3, 1] = distx[ix + 1], disty[iy + 1]
+
+    def line_block(node_ids: np.ndarray) -> ElementBlock:
+        nodes = np.stack([node_ids[:-1], node_ids[1:]], axis=1).astype(np.int64)
+        verts = np.zeros((len(node_ids) - 1, 2, 3))
+        verts[:, 0, :] = coords[node_ids[:-1]]
+        verts[:, 1, :] = coords[node_ids[1:]]
+        return ElementBlock(ElementType.LINE, 1, nodes, verts)
+
+    bottom = line_block(np.arange(nx))
+    top = line_block(np.arange(nx) + ey * nx)
+    left = line_block(np.arange(ny) * nx)
+    right = line_block(np.arange(ny) * nx + ex)
+
+    domains = {
+        ids.domain: [ElementBlock(ElementType.QUAD, 1, qnodes, qverts)],
+        ids.bottom: [bottom],
+        ids.top: [top],
+        ids.left: [left],
+        ids.right: [right],
+    }
+    return Mesh(
+        dim=2,
+        n_nodes=nx * ny,
+        node_coords=coords,
+        domains=domains,
+        boundary_ids=(ids.bottom, ids.top, ids.left, ids.right),
+    )
 
 
 def make_cube_mesh(distx, disty=None, distz=None, ids: CubeMeshIds = CubeMeshIds()) -> Mesh:

@@ -24,6 +24,69 @@ __all__ = ["CHECK_EVERY", "cg_solve", "CG"]
 CHECK_EVERY = 10  # iterations between host reads of the convergence flag
 
 
+def _lattice_solve_layout(system, precond) -> str:
+    """"lattice" when both the operator and the preconditioner can run on
+    channel-major vectors (see ``MatrixFreeSystem.lattice_layout_key``): the
+    Krylov loop then skips the operator's per-apply entry/exit transposes,
+    converting layouts once per solve."""
+    lk = getattr(system, "lattice_layout_key", None)
+    if lk is None or not getattr(precond, "supports_lattice_layout", False):
+        return "dof"
+    return "lattice" if lk() is not None else "dof"
+
+
+def _precond_parts(precond, system, layout: str = "dof"):
+    """(apply(r, *consts), consts) for a preconditioner; a preconditioner with
+    only ``setup(system)`` runs in the dof layout.
+
+    Results are cached on the system keyed by (preconditioner, assembly
+    epoch, layout): repeated solves between reassemblies reuse the setup,
+    and ``end_assembly`` (which bumps the epoch) invalidates it.  An integer
+    ``lag = k`` attribute reuses the setup for up to k reassemblies (epochs
+    are bucketed by k + 1)."""
+    epoch = getattr(system, "_assembly_epoch", None)
+    lag = getattr(precond, "lag", 0) or 0
+    if lag == "auto":
+        raise NotImplementedError(
+            "lag='auto' needs the solver's iteration feedback, which is not ported "
+            "(ROADMAP.md queue A7, PMultigrid)"
+        )
+    if lag and epoch is not None:
+        epoch = epoch - (epoch % (int(lag) + 1))
+    key = None
+    if epoch is not None:
+        try:
+            key = (precond, epoch, layout)
+            hash(key)
+        except TypeError:
+            key = None
+    if key is not None:
+        cache = getattr(system, "_precond_parts_cache", None)
+        if cache is None:
+            cache = system._precond_parts_cache = {}
+        else:
+            # drop stale setups of earlier (bucketed) epochs, per entry, so a
+            # lagged preconditioner's live bucket survives others' refreshes
+            for k in [k for k in cache if k[0] == precond and k[1] != epoch]:
+                del cache[k]
+            if len(cache) > 16:  # bound abandoned preconditioners' entries
+                cache.clear()
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+    setup_parts = getattr(precond, "setup_parts", None)
+    if setup_parts is not None:
+        parts = setup_parts(system, layout=layout) if layout != "dof" else setup_parts(system)
+    elif layout != "dof":
+        raise ValueError(f"{type(precond).__name__} does not support layout={layout!r}")
+    else:
+        M = precond.setup(system)
+        parts = (lambda r, *pc: M(r)), ()
+    if key is not None:
+        cache[key] = parts
+    return parts
+
+
 def _col_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-column inner products of (n, n_rhs) multivectors -> (n_rhs,)."""
     return (a * b).sum(dim=0)
@@ -112,25 +175,23 @@ class CG:
     """User-facing CG solver (``solve/BelosSolvers.hpp:116``).
 
     Solves in the lattice layout when the operator and the preconditioner
-    support it, converting the vectors once per solve."""
+    support it, converting the vectors once per solve; the preconditioner's
+    setup is cached per assembly epoch (:func:`_precond_parts`)."""
 
     opts: IterSolverOpts = field(default_factory=IterSolverOpts)
     precond: object = field(default_factory=Identity)
 
     def solve(self, system) -> IterSolveResult:
         o = self.opts
-        lattice = (
-            getattr(self.precond, "supports_lattice_layout", False)
-            and system.lattice_layout_key() is not None
-        )
-        layout = "lattice" if lattice else "dof"
+        layout = _lattice_solve_layout(system, self.precond)
+        lattice = layout == "lattice"
         fn, consts = system.operator_parts(layout=layout)
-        M = self.precond.setup(system, layout=layout)
+        M_fn, M_consts = _precond_parts(self.precond, system, layout)
         b, x0 = system.effective_rhs(), system.solution_vector()
         if lattice:
             b, x0 = system.to_lattice_layout(b), system.to_lattice_layout(x0)
         x, it, res = cg_solve(
-            lambda v: fn(v, *consts), b, x0=x0, precond=M, tol=o.tol,
+            lambda v: fn(v, *consts), b, x0=x0, precond=lambda r: M_fn(r, *M_consts), tol=o.tol,
             max_iters=o.max_iters, residual_scaling=o.residual_scaling,
         )
         if lattice:

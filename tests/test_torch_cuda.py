@@ -415,12 +415,12 @@ def _var_diffusion(inp, out):
     ops[1][0, 1] = ops[2][0, 2] = ops[3][0, 3] = -k
 
 
-def _box_system(kernel, device, order=3):
-    mesh = lp.generate_mesh(lp.make_cube_mesh(np.linspace(0.0, 1.0, 3)), order=order)
+def _box_system(kernel, device, order=3, n_1d=3, strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE):
+    mesh = lp.generate_mesh(lp.make_cube_mesh(np.linspace(0.0, 1.0, n_1d)), order=order)
     problem = lp.ProblemDefinition(4, [0])
     bcs = lp.BCDefinition(problem)
     bcs.define_dirichlet([5, 6], [0])
-    params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
+    params = lp.AlgebraicSystemParams(eval_strategy=strategy)
     system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=torch.float64, device=device)
     kdir = lp.wrap_boundary_residual_kernel(lambda i, o: o.__setitem__(0, i.point.x), lp.KernelParams(3, 1))
     system.set_dirichlet_bc_values(kdir, [5, 6], [0])
@@ -471,6 +471,22 @@ def test_fused_z_sweep_layer_shapes_match_plain(cuda, p, qo, ne, RQ, mode, layou
     (RQ = 4100: rows carried inside a chunk), with one layer (no shared row)
     and two, and at p = 8 and 9 (layers of more node rows than the kernel
     holds in registers at once); f64 and f32 against the plain version in f64."""
+    _check_zsweep_shape(cuda, p, qo, ne, RQ, mode, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "ne,RQ,mode", [(18, 1296, "const-diag"), (36, 5184, "var-full"), (18, 1296, "var-full"), (36, 5184, "const-diag")]
+)
+def test_fused_z_sweep_order1_shapes_match_plain(cuda, ne, RQ, mode):
+    """The z-sweep at the order-1 multigrid levels' shapes (p = 1, QO = 2:
+    two node rows and two QP rows a layer): the bench's level 1 (n1z = 19,
+    S = 36, RQ = 1,296, const+diag) and the var 12^3 box's level 1 (n1z = 37,
+    S = 72, RQ = 5,184, var+full), each also in the other mode."""
+    _check_zsweep_shape(cuda, 1, 2, ne, RQ, mode, "cz")
+
+
+def _check_zsweep_shape(cuda, p, qo, ne, RQ, mode, layout):
     from l3ster_tpu_torch.ops.zsweep import launch_shape, zsweep_layers
 
     S, n1z, c = ne * (qo // 2 + 1), ne * p + 1, 4
@@ -509,3 +525,42 @@ def test_fused_z_sweep_layer_shapes_match_plain(cuda, p, qo, ne, RQ, mode, layou
         for x_got, x_ref in zip(got, ref):
             assert tuple(x_got.shape) == shape
             assert _rel(x_got, x_ref) < tol, (dt, mode, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("var", [False, True])
+def test_lowordermg_vcycle_cuda_matches_cpu(cuda, var):
+    """One LowOrderMG V-cycle in f64 on the card against the same on the CPU,
+    in the lattice layout, with an order-1 matrix-free level between the
+    fine level and the coarse inverse (p = 2 on 4^3 hexes: 9, 5 and 3 nodes
+    an axis), so the order-1 level runs the z-sweep kernel; to 1e-11."""
+    from l3ster_tpu_torch.ops import zsweep
+
+    mg = lp.LowOrderMG(coarse_max_dofs=200)
+    kernel = _var_diffusion if var else _diffusion_3d
+    systems = {d: _box_system(kernel, d, order=2, n_1d=5) for d in (cuda, "cpu")}
+    r = torch.as_tensor(np.random.default_rng(10).normal(size=(systems["cpu"].n_dofs, 1)))
+    out = {}
+    for d, s in systems.items():
+        apply, consts = mg.setup_parts(s, layout="lattice")
+        assert all(c.device.type == torch.device(d).type for c in consts if isinstance(c, torch.Tensor))
+        before = zsweep.launch_count
+        out[d] = apply(s.to_lattice_layout(r.to(d)), *consts).cpu()
+        if d is cuda:
+            torch.cuda.synchronize()
+            assert zsweep.launch_count > before
+    assert _rel(out[cuda], out["cpu"]) < 1e-11
+
+
+@pytest.mark.cuda
+def test_assembled_system_cuda_matches_cpu(cuda):
+    """An AssembledSystem (p = 3, 2^3 hexes) on the card against the CPU in
+    f64: values, SpMV, diagonal and the eliminated CSR data."""
+    G = lp.OperatorEvaluationStrategy.GLOBAL_ASSEMBLY
+    gpu, cpu = _box_system(_var_diffusion, cuda, strategy=G), _box_system(_var_diffusion, "cpu", strategy=G)
+    assert isinstance(gpu, lp.AssembledSystem) and gpu.data.device.type == cuda.type
+    x = torch.as_tensor(np.random.default_rng(11).normal(size=(cpu.n_dofs, 2)))
+    assert _rel(gpu.operator()(x.to(cuda)).cpu(), cpu.operator()(x)) < 1e-11
+    assert _rel(gpu.data.cpu(), cpu.data) < 1e-11
+    assert _rel(gpu.diagonal().cpu(), cpu.diagonal()) < 1e-11
+    assert _rel(gpu.eliminated_csr()[0].cpu(), cpu.eliminated_csr()[0]) < 1e-11

@@ -224,3 +224,80 @@ def test_system_under_switch_matches_default_and_reference(bench_pair, monkeypat
     assert _rel(y, fd(xl, *cd)) < REL
     assert _rel(y, _jax_apply(sj, sj.to_lattice_layout(x), "lattice")) < REL
     assert _rel(s.effective_rhs(), sj.effective_rhs()) < REL
+
+
+class _DiagSystem:
+    """A 5 x 5 diagonal operator with the system interface CG uses."""
+
+    def __init__(self):
+        self.d = torch.arange(1.0, 6.0, dtype=torch.float64)
+        self.b = torch.ones((5, 1), dtype=torch.float64)
+        self.x = torch.zeros((5, 1), dtype=torch.float64)
+        self._assembly_epoch = 1
+
+    def lattice_layout_key(self):
+        return None
+
+    def operator_parts(self, layout="dof"):
+        assert layout == "dof"
+        return (lambda x: self.d[:, None] * x), ()
+
+    def diagonal(self):
+        return self.d
+
+    def effective_rhs(self):
+        return self.b
+
+    def solution_vector(self):
+        return self.x
+
+    def set_solution_vector(self, x):
+        self.x = x
+
+
+class _SetupOnly:
+    """A preconditioner in the reference's closure style: ``setup(system)`` only."""
+
+    supports_lattice_layout = False
+
+    def __init__(self):
+        self.setups = 0
+
+    def setup(self, system):
+        self.setups += 1
+        inv = 1.0 / system.diagonal()
+        return lambda r: inv[:, None] * r
+
+
+def test_cg_accepts_reference_preconditioner_protocol():
+    """CG takes a preconditioner with only ``setup(self, system)`` (run in the
+    dof layout, as the reference's ``_precond_parts`` does), reuses its setup
+    for a second solve in the same assembly epoch, and sets it up again after
+    the epoch moves."""
+    system, pre = _DiagSystem(), _SetupOnly()
+    cg = lp.CG(lp.IterSolverOpts(tol=1e-12, max_iters=10), precond=pre)
+    r = cg.solve(system)
+    assert r.converged and r.num_iters == 1 and pre.setups == 1
+    np.testing.assert_allclose(system.x[:, 0].numpy(), 1.0 / np.arange(1.0, 6.0), rtol=1e-14)
+    system.x = torch.zeros_like(system.x)
+    assert cg.solve(system).converged and pre.setups == 1
+    system._assembly_epoch += 1
+    assert cg.solve(system).converged and pre.setups == 2
+
+
+def test_precond_lag_buckets_epochs():
+    """An integer ``lag = k`` reuses a setup for up to k reassemblies (epochs
+    bucketed by k + 1); ``lag="auto"`` needs the solver's iteration feedback,
+    which is not ported, and raises."""
+    system, pre = _DiagSystem(), _SetupOnly()
+    pre.lag = 1
+    cg = lp.CG(lp.IterSolverOpts(tol=1e-12, max_iters=10), precond=pre)
+    counts = []
+    for epoch in (2, 3, 4, 5):
+        system._assembly_epoch = epoch
+        cg.solve(system)
+        counts.append(pre.setups)
+    assert counts == [1, 1, 2, 2]
+    pre.lag = "auto"
+    with pytest.raises(NotImplementedError, match="A7"):
+        cg.solve(system)
