@@ -1,8 +1,9 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives ``l3ster_tpu_torch`` (never JAX, never ``l3ster_tpu``) through its
-main paths, matrix-free 3D diffusion (4 unknowns, 7 equations, float32),
-each solved with CG + Jacobi, the lattice ones also with CG + LowOrderMG:
+main paths: matrix-free 3D diffusion (4 unknowns, 7 equations, float32),
+each solved with CG + Jacobi, the lattice ones also with CG + LowOrderMG,
+and the unsteady 2D Karman vortex street:
 
 * the lattice path at the bench configuration: a p=6 cube of 6^3 hexes
   (202,612 dofs), value-only adiabatic faces on sides 1-4 and Dirichlet T on
@@ -23,7 +24,13 @@ each solved with CG + Jacobi, the lattice ones also with CG + LowOrderMG:
   the outlet (4) and the cylinder (5), value-only adiabatic walls (1, 2) and
   caps (6, 7).  AUTO takes the dense apply (``dense_const``, the per-QP
   kernel between two matmuls) with direct boundary contributions;
-  ``SUM_FACT_PALLAS`` takes the fused sum-factorized kernel.
+  ``SUM_FACT_PALLAS`` takes the fused sum-factorized kernel;
+* the Karman 2D transient stack at the reference's Strouhal validation
+  size (``examples/karman_2d.py:strouhal_study(refine=2, mesh_order=3)``,
+  80,880 dofs): Navier-Stokes in velocity-vorticity-pressure form reading
+  the previous velocities as fields, matrix-free (the field-coupled
+  ``dense`` kind and ``direct`` boundaries, plain torch: no CUDA kernel of
+  the port lies on this path), Picard then BDF2 with CG + PMultigrid.
 
 Phases, each reported on its own line:
 
@@ -64,7 +71,16 @@ Phases, each reported on its own line:
    against the same system in f64 on the card, a small cylinder system
    against the CPU path, apply time, device-busy time and idle share; the
    same system under SUM_FACT_PALLAS against the f64 apply, and its time;
-9. CG + Jacobi on the cylinder problem.
+9. CG + Jacobi on the cylinder problem;
+10. ``karman``: 8 Picard solves (CG + a PMultigrid(lag="auto") of their
+   own; each with its true residual beside CG's), 3 settling and 10 timed
+   BDF2 steps with CG + PMultigrid(lag="auto") from the predictor start:
+   s/step, iterations, refreshes and one refresh's split (coarse Q1
+   assembly, host f64 inverse, power iteration, upload), one V-cycle's time
+   and idle share, the true residual beside CG's, the flow rates; one step
+   also with CG + Jacobi (PMultigrid must take at most a quarter of its
+   iterations), and the first step again in f64 (f32 within
+   KARMAN_F32_TOL of it).
 
 Each kernel's launch count is set to 0 just before the path it is counted
 on and read just after it: the z-sweep's const mode on phases 4-5 and then
@@ -1343,9 +1359,9 @@ def phase_mg_solve(lp, state: dict, jacobi_iters: int, phase: str, precond=None)
         apply_ = s._apply
         level_kinds[li] = [d[0] for _, d in s._operators()[1]]
 
-        def counted(x, lattice_io):
+        def counted(x, lattice_io, ops):
             before = zsweep.launch_count
-            y = apply_(x, lattice_io)
+            y = apply_(x, lattice_io, ops)
             launches[li] = launches.get(li, 0) + zsweep.launch_count - before
             return y
 
@@ -1420,6 +1436,266 @@ def phase_mg_solve(lp, state: dict, jacobi_iters: int, phase: str, precond=None)
     return path_launches
 
 
+# ------------------------------------------------------------------- Karman 2D
+
+# The reference's Strouhal validation configuration (``examples/karman_2d.py``
+# ``strouhal_study(refine=2, mesh_order=3, matrix_free=True)``, run by
+# ``benchmarks/run_validation.py:31-80``): Re = 100, dt = 0.15, walls at
+# y = -2.0 and +2.1, the channel mesh doubled in each direction.
+KARMAN_Y = (-2.0, 2.1)
+KARMAN_RE, KARMAN_DT, KARMAN_ORDER = 100.0, 0.15, 3
+# The Picard sweeps take the reference's restart settings (tol 1e-6, cap
+# 6,000, chunk 1,024; examples/karman_2d.py:233) with a PMultigrid(lag="auto")
+# of their own, as strouhal_study's ``warm_solver`` allows, not the stepper's
+# (a lagged setup of the steady operator would precondition the transient
+# one).  With the reference's Jacobi, 5 of 8 sweeps hit the cap in f32 at this
+# size, in the reference as in the port: each restart resumes from the true
+# residual, which f32 keeps above 1e-6 (an H100; and on the CPU,
+# tools/karman_picard_witness.py, PERF.md §6).
+KARMAN_PICARD_TOL, KARMAN_PICARD_ITERS, KARMAN_PICARD_CHUNK = 1e-6, 6000, 1024
+KARMAN_STEP_TOL, KARMAN_STEP_ITERS, KARMAN_STEP_CHUNK = 1e-6, 4000, 256
+KARMAN_JACOBI_ITERS = 20000  # the CG + Jacobi comparison solve
+# f32 against f64 over the first BDF2 step, from the same fields: max abs
+# difference of the new fields over the largest |f64 value|.  The f32 solve
+# stops at a relative residual of 1e-6 (the f64 one at 1e-10) and its true
+# residual sits near 7e-6 (f32 rounding), so the step carries a solve error
+# of that order times the preconditioned operator's amplification; three H100
+# runs read 1.3e-5 to 5.6e-5, and the bound is 4.5 times the largest (PERF.md §2)
+KARMAN_F32_TOL = 2.5e-4
+DOMAIN, BOTTOM, TOP, INLET, OUTLET, CYLINDER = 0, 1, 2, 3, 4, 5
+
+
+def karman_mesh_kw(refine: int = 2) -> dict:
+    """``make_cylinder_in_channel_2d`` arguments of ``strouhal_study(refine=...)``."""
+    rf = int(refine)
+    return dict(
+        r_outer=1.2, left_offset=2.0, right_offset=10.0, bottom_offset=-KARMAN_Y[0], top_offset=KARMAN_Y[1],
+        n_circumf=32 * rf, n_radial=7 * rf, n_left=3 * rf, n_right=17 * rf, n_bottom=3 * rf, n_top=3 * rf,
+        q_radial=1.28 ** (1.0 / rf), q_right=1.06 ** (1.0 / rf),
+    )
+
+
+def karman_setup(lp, dtype, device, mesh_kw=None, order: int = KARMAN_ORDER, mesh=None) -> dict:
+    """The Strouhal study's matrix-free system, kernels and solution manager
+    (six slots: u, v at two time levels, vorticity, pressure)."""
+    from l3ster_tpu_torch.models.kernels import flow_rate_bc, navier_stokes_outlet_bc, navier_stokes_uvop_2d
+
+    if mesh is None:
+        mesh = lp.generate_mesh(lp.make_cylinder_in_channel_2d(**(mesh_kw or karman_mesh_kw())), order=order)
+    problem = lp.ProblemDefinition(4, [DOMAIN])
+    bcs = lp.BCDefinition(problem)
+    bcs.define_dirichlet([INLET, BOTTOM, TOP, CYLINDER], [0, 1])
+    params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
+    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
+    nu = 1.0 / KARMAN_RE
+    y_b, y_t = KARMAN_Y
+
+    def inlet_profile(inp, out):
+        # parabola vanishing at both walls, mean velocity 1 over the channel
+        y = inp.point.y
+        out[0] = 6.0 * (y - y_b) * (y_t - y) / (y_t - y_b) ** 2
+        out[1] = 0.0
+
+    k_inlet = lp.wrap_boundary_residual_kernel(inlet_profile, lp.KernelParams(dimension=2, n_equations=2))
+    system.set_dirichlet_bc_values([0.0, 0.0], [BOTTOM, TOP, CYLINDER], [0, 1])
+    system.set_dirichlet_bc_values(k_inlet, [INLET], [0, 1])
+    return dict(
+        mesh=mesh, system=system, manager=lp.SolutionManager(mesh, 6, device=device),
+        k_steady=navier_stokes_uvop_2d(nu), k_trans=navier_stokes_uvop_2d(nu, dt=KARMAN_DT),
+        k_outlet=navier_stokes_outlet_bc(nu), k_flow=flow_rate_bc(),
+        opts=lp.AssemblyOptions(value_order=1, derivative_order=1),
+        vel1=[0, 1], vel2=[2, 3], x_prev=None,
+    )
+
+
+def karman_assemble(st: dict, steady: bool) -> None:
+    """Assemble the steady (Picard) or the BDF2 operator from the current fields."""
+    system, man = st["system"], st["manager"]
+    system.begin_assembly()
+    if steady:
+        system.assemble_problem(st["k_steady"], [DOMAIN], man.field_access(st["vel1"]), options=st["opts"])
+    else:
+        system.assemble_problem(st["k_trans"], [DOMAIN], man.field_access(st["vel1"] + st["vel2"]), options=st["opts"])
+    system.assemble_problem(st["k_outlet"], [OUTLET], dof_inds=(0, 1, 3))
+    system.end_assembly()
+
+
+def karman_picard(lp, st: dict, n: int = 8) -> list:
+    """The steady Picard iterations with CG + PMultigrid(lag="auto"), an
+    instance of their own; returns one record per solve: iterations, CG's
+    recursive relative residual and the true one, ||b - A x|| / ||b|| in the
+    system's dtype, converged, capped, and the PMultigrid refreshes so far."""
+    pmg = lp.PMultigrid(lag="auto")
+    opts = lp.IterSolverOpts(tol=KARMAN_PICARD_TOL, max_iters=KARMAN_PICARD_ITERS, chunk=KARMAN_PICARD_CHUNK)
+    solver = lp.CG(opts, precond=pmg)
+    system, results = st["system"], []
+    for _ in range(n):
+        karman_assemble(st, steady=True)
+        r = system.solve(solver)
+        b = system.effective_rhs()
+        true_res = float((b - system.operator()(system.solution_vector())).norm() / b.norm())
+        results.append(dict(iterations=r.num_iters, cg_rel_residual=r.tol, true_rel_residual=true_res,
+                            converged=r.converged, capped=r.capped,
+                            refreshes=system._pmg_static_cache[pmg]["refreshes"]))
+        system.update_solution([0, 1], st["manager"], st["vel1"])
+    system.update_solution([0, 1, 2, 3], st["manager"], st["vel2"] + [4, 5])
+    return results
+
+
+def karman_step_solver(lp, precond):
+    return lp.CG(
+        lp.IterSolverOpts(tol=KARMAN_STEP_TOL, max_iters=KARMAN_STEP_ITERS, chunk=KARMAN_STEP_CHUNK), precond=precond
+    )
+
+
+def karman_predict(st: dict) -> None:
+    """Assemble the BDF2 operator and set the predictor start x0 = 2 u_n - u_{n-1}
+    (Dirichlet rows are constant in time, so the extrapolation keeps them)."""
+    karman_assemble(st, steady=False)
+    system = st["system"]
+    x_cur = system.solution_vector()
+    if st["x_prev"] is not None:
+        system.set_solution_vector(2.0 * x_cur - st["x_prev"])
+    st["x_prev"] = x_cur
+
+
+def karman_finish_step(st: dict) -> None:
+    """Copy the step's solution into the older velocity slots, vorticity and
+    pressure, then swap the time levels."""
+    st["system"].update_solution([0, 1, 2, 3], st["manager"], st["vel2"] + [4, 5])
+    st["vel1"], st["vel2"] = st["vel2"], st["vel1"]
+
+
+def karman_flows(lp, st: dict) -> tuple[float, float]:
+    """(inflow, outflow): the flux of the newest velocity through inlet and outlet."""
+    access = st["manager"].field_access(st["vel1"])
+    inflow = -float(lp.compute_integral(st["k_flow"], st["mesh"], [INLET], access)[0, 0])
+    outflow = float(lp.compute_integral(st["k_flow"], st["mesh"], [OUTLET], access)[0, 0])
+    return inflow, outflow
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_karman(lp, device: str = "cuda", mesh_kw=None, order: int = KARMAN_ORDER, n_settle: int = 3,
+                 n_timed: int = 10, jacobi_step: int = 5) -> None:
+    """The Karman 2D transient stack at the reference's Strouhal validation
+    size (80,880 dofs, f32, matrix-free, AUTO -> the field-coupled ``dense``
+    kind): 8 Picard solves with CG + a PMultigrid(lag="auto") of their own,
+    then ``n_settle`` settling and ``n_timed`` timed BDF2 steps with CG +
+    PMultigrid(lag="auto") from the predictor start.  Reports s/step, iterations per step, the PMultigrid
+    refreshes and one refresh's split, one V-cycle's time and idle share,
+    the true residual beside CG's, the flow rates; on timed step
+    ``jacobi_step`` the same operator is also solved with CG + Jacobi from
+    the same start.  The first BDF2 step is repeated in f64 on the same
+    device from the same fields (to a relative residual of 1e-10).  Fails
+    unless every solve converged without hitting its cap, all fields are finite, PMultigrid takes at most a
+    quarter of Jacobi's iterations, and f32 agrees with f64 to KARMAN_F32_TOL."""
+    import torch
+
+    from l3ster_tpu_torch.solve.krylov import _precond_parts
+
+    t_start = time.perf_counter()
+    st = karman_setup(lp, torch.float32, device, mesh_kw, order)
+    system, man = st["system"], st["manager"]
+    setup_s = time.perf_counter() - t_start
+    _sync(device)
+    t0 = time.perf_counter()
+    picard = karman_picard(lp, st)
+    _sync(device)
+    picard_s = time.perf_counter() - t0
+    kinds = [d[0] for _, d in system._operators()[1]]
+    fields0 = man.values.clone()
+    x0 = system.solution_vector().clone()
+
+    pmg = lp.PMultigrid(lag="auto")
+    solver = karman_step_solver(lp, pmg)
+    # the refresh counter sits in PMultigrid's per-system cache, keyed by the
+    # (equal) configuration, so it also counts the Picard sweeps' refreshes
+    refreshes0 = picard[-1]["refreshes"]
+    steps, refresh_split = [], None
+    jac = None
+    for k in range(n_settle + n_timed):
+        _sync(device)
+        t0 = time.perf_counter()
+        karman_predict(st)
+        x_start = system.solution_vector()
+        r = system.solve(solver)
+        karman_finish_step(st)
+        _sync(device)
+        step_s = time.perf_counter() - t0
+        cache = system._pmg_static_cache[pmg]
+        refreshed = cache["refreshes"] - refreshes0 > sum(s["refreshed"] for s in steps)
+        if refreshed and refresh_split is None:
+            refresh_split = dict(cache["last_refresh"])
+        steps.append(dict(step=k + 1, s=step_s, iterations=r.num_iters, converged=r.converged,
+                          capped=r.capped, refreshed=bool(refreshed)))
+        if k == 0:
+            v32 = man.values[:, st["vel1"] + [4, 5]].clone()
+        if k == n_settle + jacobi_step - 1:
+            # the same operator and start with CG + Jacobi; the trajectory keeps PMultigrid's x
+            b = system.effective_rhs()
+            x_pmg = system.solution_vector()
+            true_res = float((b - system.operator()(x_pmg)).norm() / b.norm())
+            M_fn, M_consts = _precond_parts(pmg, system)
+            r_host = np.random.default_rng(41).normal(size=(system.n_dofs, 1))
+            rv = torch.as_tensor(r_host, dtype=system.dtype, device=device)
+            vcycle_ms = _cuda_ms(lambda: M_fn(rv, *M_consts), reps=10, batch=5)
+            busy_ms, top = _profile_apply(lambda v: M_fn(v, *M_consts), rv, n=5)
+            system.set_solution_vector(x_start)
+            _sync(device)
+            t1 = time.perf_counter()
+            # one unrestarted CG, as the reference's bar runs it (tests/test_pmg.py:121-176)
+            opts = lp.IterSolverOpts(tol=KARMAN_STEP_TOL, max_iters=KARMAN_JACOBI_ITERS)
+            rj = system.solve(lp.CG(opts, precond=lp.Jacobi()))
+            _sync(device)
+            jac = dict(step=k + 1, pmg_iterations=r.num_iters, jacobi_iterations=rj.num_iters,
+                       jacobi_converged=rj.converged, jacobi_capped=rj.capped,
+                       jacobi_s=time.perf_counter() - t1, ratio=rj.num_iters / max(r.num_iters, 1),
+                       true_rel_residual=true_res, cg_rel_residual=r.tol, vcycle_ms=vcycle_ms,
+                       vcycle_device_busy_ms=busy_ms, vcycle_device_idle_share=1.0 - busy_ms / vcycle_ms,
+                       vcycle_top_device_ms=top)
+            system.set_solution_vector(x_pmg)
+    inflow, outflow = karman_flows(lp, st)
+    finite = bool(torch.isfinite(man.values).all())
+    timed = [s["s"] for s in steps[n_settle:]]
+
+    # the first BDF2 step again in f64 on the same device, from the Picard fields
+    s64 = karman_setup(lp, torch.float64, device, mesh=st["mesh"], order=order)
+    s64["manager"].values = fields0.clone()
+    s64["system"].set_solution_vector(x0.double())
+    karman_predict(s64)
+    opts = lp.IterSolverOpts(tol=1e-10, max_iters=KARMAN_STEP_ITERS, chunk=KARMAN_STEP_CHUNK)
+    r64 = s64["system"].solve(lp.CG(opts, precond=lp.PMultigrid(lag="auto")))
+    karman_finish_step(s64)
+    v64 = s64["manager"].values[:, s64["vel1"] + [4, 5]]
+    f32_err = float((v32 - v64).abs().max() / v64.abs().max())
+    ok = (
+        all(r["converged"] and not r["capped"] for r in picard)
+        and all(s["converged"] and not s["capped"] for s in steps)
+        and finite and jac is not None and jac["jacobi_converged"]
+        and 4 * jac["pmg_iterations"] <= jac["jacobi_iterations"]
+        and r64.converged and f32_err <= KARMAN_F32_TOL
+    )
+    _say(
+        "karman", n_dofs=system.n_dofs, n_quads=sum(b.n_elements for _, b in st["mesh"].blocks([DOMAIN])),
+        order=order, dtype="float32",
+        kinds=kinds, setup_s=setup_s, picard_s=picard_s, picard=picard,
+        s_per_step_median=statistics.median(timed), s_per_step_min=min(timed), s_per_step_max=max(timed),
+        steps=steps, refreshes=system._pmg_static_cache[pmg]["refreshes"] - refreshes0,
+        refresh_steps=[s["step"] for s in steps if s["refreshed"]], refresh_split_s=refresh_split,
+        coarse_dofs=system._pmg_static_cache[pmg]["s1"].n_dofs, jacobi_comparison=jac,
+        inflow=inflow, outflow=outflow, imbalance_pct=abs(inflow - outflow) / inflow * 100.0,
+        finite=finite, f32_vs_f64_first_step_rel=f32_err, f32_tol=KARMAN_F32_TOL,
+        first_step_iterations_f32_f64=[steps[0]["iterations"], r64.num_iters], ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the Karman stepping failed its checks")
+
 
 def main() -> int:
     import torch
@@ -1462,6 +1738,9 @@ def main() -> int:
     phase_unstructured_solve(lp, state)
     records[0]["launches"] = qp.launch_count  # unstructured main path: phases 8 and 9
     records[1]["launches"] = sumfact_fused.launch_count
+    del state
+    torch.cuda.empty_cache()
+    phase_karman(lp)
     kernels = [record, var_record, v1_record, stage_record] + records
     for rec in kernels:
         if rec["launches"] <= 0:

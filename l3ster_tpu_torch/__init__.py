@@ -25,8 +25,8 @@ from .common.kernel import (
     wrap_domain_residual_kernel,
 )
 from .common.problem import AlgebraicSystemParams, AssemblyOptions, BCDefinition, ProblemDefinition
-from .interop import from_lattice_layout, mesh_from_numpy, to_lattice_layout
-from .mesh.convert_order import convert_mesh_to_order
+from .interop import from_lattice_layout, mesh_from_numpy, solution_manager_from_numpy, to_lattice_layout
+from .mesh.convert_order import convert_mesh_to_order, extract_q1_mesh
 from .mesh.core import ElementBlock, Mesh
 from .mesh.generators import (
     CubeMeshIds,
@@ -41,10 +41,15 @@ from .mesh.generators import (
     make_square_mesh,
 )
 from .mesh.traits import ElementType
+from .post.integral import compute_integral, compute_norm_l2
+from .post.solution import FieldAccess, SolutionManager
+from .solve.direct import Klu2, Lapack
 from .solve.interface import IterSolveResult, IterSolverOpts
 from .solve.krylov import CG
 from .solve.lowordermg import LowOrderMG
+from .solve.pmg import PMultigrid
 from .solve.precond import Identity, Jacobi
+from . import models  # models.kernels: the canonical PDE kernels
 
 __version__ = "0.1.0"
 

@@ -10,7 +10,8 @@ basis values and ``B_d`` the physical basis derivatives.  This module ports
 geometry, the batched kernel evaluation, the local matrices of the assembled
 system (``local_system``), the right-hand side and operator diagonal (direct
 and sum-factorized), and the local applies of the gather-based paths
-(direct, dense-basis and sum-factorized, constant A).  Everything is batched
+(direct; dense-basis and sum-factorized, with a constant A or with A
+stored per QP).  Everything is batched
 over elements (leading axis E).
 
 Local DOF ordering is node-major: local dof = node * n_unknowns + unknown.
@@ -39,13 +40,18 @@ __all__ = [
     "DomainTables",
     "domain_tables",
     "side_tables",
+    "node_tables",
     "ElementGeometry",
     "element_geometry",
+    "eval_fields",
     "eval_equation_kernel",
     "eval_residual_kernel",
     "local_apply_direct",
     "local_apply_dense_const",
+    "local_apply_dense_packed",
     "local_apply_sumfact_const",
+    "local_apply_sumfact_packed",
+    "pack_sumfact_operator",
     "local_system",
     "local_rhs",
     "local_diagonal",
@@ -95,6 +101,17 @@ def side_tables(
     return DomainTables(et, order, b.values, b.derivatives, b.weights, b.points, gv, gd, side=side)
 
 
+@lru_cache(maxsize=None)
+def node_tables(et: ElementType, order: int, basis_type: BasisType = BasisType.LAGRANGE) -> DomainTables:
+    """Tables at the element's own nodes (for values-at-nodes evaluation)."""
+    from ..basis.tables import basis_at_nodes
+
+    b = basis_at_nodes(et, order, basis_type)
+    gv, gd = geometry_tables(et, b.points)
+    w = np.ones(b.values.shape[0])
+    return DomainTables(et, order, b.values, b.derivatives, w, b.points, gv, gd)
+
+
 @dataclass
 class ElementGeometry:
     """Per-(element, qp) geometric quantities; all leading axes (E, Q)."""
@@ -139,16 +156,32 @@ def element_geometry(
     return ElementGeometry(xyz=xyz, phys_ders=physD, weights=weights, normals=normals, jac_inv=Jinv)
 
 
-def _eval_points(kernel, geom: ElementGeometry, time):
-    """Map ``kernel.evaluate`` over the E*Q points of a field-free contribution
-    with ``torch.func.vmap``; outputs keep their per-point shapes behind E*Q."""
+def eval_fields(
+    tables: DomainTables, geom: ElementGeometry, field_nodal: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Field values (E, Q, n_fields) and physical gradients (E, Q, dim, n_fields)
+    at the QPs from nodal values (E, n_nodes, n_fields)."""
+    N = _const(tables.values, field_nodal)
+    vals = torch.einsum("qn,enf->eqf", N, field_nodal)
+    ders = torch.einsum("eqdn,enf->eqdf", geom.phys_ders, field_nodal)
+    return vals, ders
+
+
+def _eval_points(kernel, geom: ElementGeometry, field_vals, field_ders, time):
+    """Map ``kernel.evaluate`` over the E*Q points with ``torch.func.vmap``;
+    outputs keep their per-point shapes behind E*Q.  Without fields the
+    kernel sees zeros (``_make_inputs`` of the reference)."""
     p = kernel.params
     E, Q = geom.weights.shape
     dtype, device = geom.weights.dtype, geom.weights.device
-    vals = torch.zeros((E * Q, p.n_fields), dtype=dtype, device=device)
-    ders = torch.zeros((E * Q, p.dimension, p.n_fields), dtype=dtype, device=device)
+    if field_vals is None:
+        vals = torch.zeros((E * Q, p.n_fields), dtype=dtype, device=device)
+        ders = torch.zeros((E * Q, p.dimension, p.n_fields), dtype=dtype, device=device)
+    else:
+        vals = field_vals.to(dtype).reshape(E * Q, -1)
+        ders = field_ders.to(dtype).reshape(E * Q, p.dimension, -1)
     xyz = geom.xyz.reshape(E * Q, 3)
-    t = torch.tensor(float(time), dtype=dtype, device=device)
+    t = torch.as_tensor(time, dtype=dtype, device=device)
     if kernel.is_boundary:
         if geom.normals is None:
             raise ValueError("boundary kernel requires boundary tables (with normals)")
@@ -165,20 +198,20 @@ def _eval_points(kernel, geom: ElementGeometry, time):
     return torch.func.vmap(one)(vals, ders, xyz)
 
 
-def eval_equation_kernel(kernel, geom: ElementGeometry, time=0.0):
-    """Evaluate a wrapped equation kernel at all (element, qp) of a field-free
-    contribution.  Returns A (E, Q, dim+1, n_eq, n_unk) and f (E, Q, n_eq, n_rhs).
+def eval_equation_kernel(kernel, geom: ElementGeometry, field_vals=None, field_ders=None, time=0.0):
+    """Evaluate a wrapped equation kernel at all (element, qp), with field
+    values (E, Q, n_fields) and gradients (E, Q, dim, n_fields) or none.
+    Returns A (E, Q, dim+1, n_eq, n_unk) and f (E, Q, n_eq, n_rhs).
     """
     E, Q = geom.weights.shape
-    A, f = _eval_points(kernel, geom, time)
+    A, f = _eval_points(kernel, geom, field_vals, field_ders, time)
     return A.reshape((E, Q) + A.shape[1:]), f.reshape((E, Q) + f.shape[1:])
 
 
-def eval_residual_kernel(kernel, geom: ElementGeometry, time=0.0):
-    """Evaluate a wrapped residual kernel at all (element, point) of a field-free
-    contribution -> (E, Q, n_eq, n_rhs)."""
+def eval_residual_kernel(kernel, geom: ElementGeometry, field_vals=None, field_ders=None, time=0.0):
+    """Evaluate a wrapped residual kernel at all (element, point) -> (E, Q, n_eq, n_rhs)."""
     E, Q = geom.weights.shape
-    f = _eval_points(kernel, geom, time)
+    f = _eval_points(kernel, geom, field_vals, field_ders, time)
     return f.reshape((E, Q) + f.shape[1:])
 
 
@@ -206,7 +239,8 @@ def local_apply_direct(
 
 
 def local_system(
-    kernel, tables: DomainTables, geom: ElementGeometry, time=0.0, qp_chunk: int | None = None
+    kernel, tables: DomainTables, geom: ElementGeometry, field_vals=None, field_ders=None,
+    time=0.0, qp_chunk: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Local LSFEM matrices K (E, n_loc, n_loc) and rhs F (E, n_loc, n_rhs).
 
@@ -217,7 +251,7 @@ def local_system(
     M-sized operand; quadrature weights and valid-element Jacobians are
     positive, so sqrt(w) is exact."""
     p = kernel.params
-    A, f = eval_equation_kernel(kernel, geom, time)
+    A, f = eval_equation_kernel(kernel, geom, field_vals, field_ders, time)
     B = _basis_stack(tables, geom)
     E, Q = geom.weights.shape
     n_loc = tables.values.shape[1] * p.n_unknowns
@@ -364,3 +398,62 @@ def local_apply_sumfact_const(
     A = np.asarray(A_const, dtype=np.float64)
     t0, tr = _qp_algebra_const(A, Ji_t, w_t, vals_l, rd, dim, c, x_loc.dtype)
     return sumfact_transpose_channels(t0, tr, N1, D1, dim, E)
+
+
+def pack_sumfact_operator(A: torch.Tensor, geom: ElementGeometry, dim: int):
+    """The x-independent operator tensors with the (E*Q) axis last, the
+    layout of :func:`local_apply_dense_packed` and
+    :func:`local_apply_sumfact_packed`: (A_t (dim+1, n_eq, n_unk, EQ),
+    Ji_t (dim, dim, EQ), w_t (EQ,)), element-major."""
+    E, Q = geom.weights.shape
+    EQ = E * Q
+    A_t = A.reshape((EQ,) + A.shape[2:]).permute(1, 2, 3, 0)
+    Ji_t = geom.jac_inv.reshape(EQ, dim, dim).permute(1, 2, 0)
+    return A_t, Ji_t, geom.weights.reshape(EQ)
+
+
+def _qp_algebra_packed(A_t: torch.Tensor, Ji_t: torch.Tensor, w_t: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Variable-coefficient per-QP algebra: the reference's unrolled chains
+    (``_qp_algebra_packed``) as broadcast products over all (dim+1, n_eq,
+    n_unk) entries of A.  g (dim+1, c, EQ) holds reference-space values and
+    derivatives; returns the reference-space transpose integrands in the
+    same layout."""
+    dim = Ji_t.shape[0]
+    pders = [sum(Ji_t[j, i] * g[1 + j] for j in range(dim)) for i in range(dim)]
+    gp = torch.stack([g[0]] + pders)  # physical values and derivatives
+    r = (A_t * gp[:, None]).sum(dim=(0, 2))  # (n_eq, EQ)
+    t = (A_t * (r * w_t)[None, :, None]).sum(dim=1)  # (dim+1, c, EQ)
+    tr = [sum(Ji_t[j, i] * t[1 + i] for i in range(dim)) for j in range(dim)]
+    return torch.stack([t[0]] + tr)
+
+
+def local_apply_dense_packed(
+    A_t: torch.Tensor, Ji_t: torch.Tensor, w_t: torch.Tensor, Ball: torch.Tensor, dim: int,
+    x_loc: torch.Tensor,
+) -> torch.Tensor:
+    """Dense-basis local apply with A stored per QP (any element): the two
+    basis matmuls of :func:`local_apply_dense_const` around
+    :func:`_qp_algebra_packed`.  x_loc (E, n_nodes, c) -> y (E, n_nodes, c)."""
+    from ..ops.dense_eval import dense_interpolate_channels, dense_transpose_channels
+
+    G = dense_interpolate_channels(x_loc, Ball, dim)  # (E, c, d1, Q)
+    E, c, d1, Q = G.shape
+    T = _qp_algebra_packed(A_t, Ji_t, w_t, G.permute(2, 1, 0, 3).reshape(d1, c, E * Q))
+    return dense_transpose_channels(T.reshape(d1, c, E, Q).permute(2, 1, 0, 3), Ball)
+
+
+def local_apply_sumfact_packed(
+    A_t: torch.Tensor, Ji_t: torch.Tensor, w_t: torch.Tensor, order: int, q_order: int, dim: int,
+    x_loc: torch.Tensor,
+) -> torch.Tensor:
+    """Sum-factorized local apply with A stored per QP (Quad/Hex): sweeps to
+    the QPs, :func:`_qp_algebra_packed`, transpose sweeps."""
+    from ..ops.sumfact import sumfact_interpolate, sumfact_tables_1d, sumfact_transpose
+
+    N1, D1, _ = sumfact_tables_1d(order, q_order)
+    E, c = x_loc.shape[0], x_loc.shape[-1]
+    EQ = w_t.shape[0]
+    vals, rders = sumfact_interpolate(x_loc, N1, D1, dim)  # (E, Q, c), (E, dim, Q, c)
+    g = torch.cat([vals.reshape(1, EQ, c), rders.transpose(0, 1).reshape(dim, EQ, c)]).transpose(1, 2)
+    T = _qp_algebra_packed(A_t, Ji_t, w_t, g).permute(2, 0, 1).reshape(E, EQ // E, dim + 1, c)
+    return sumfact_transpose(T[:, :, 0], T[:, :, 1:].transpose(1, 2), N1, D1, dim)

@@ -23,16 +23,22 @@ and the layout helpers.  Two systems build on it:
     scatters the result.  Constant-coefficient volume kernels take the
     dense-basis apply (``dense_const``: two matmuls around the per-QP
     kernel), the sum-factorized one (``sumfact_const``) or the fused
-    sum-factorized kernel (``pallas``); boundary kernels and order-1
-    volumes take the direct apply.
+    sum-factorized kernel (``pallas``); variable-coefficient ones (A varies
+    in space or reads fields) take the same two applies with A stored per
+    QP (``dense``, ``sumfact``: plain torch, as the reference's XLA chains);
+    boundary kernels and order-1 volumes take the direct apply.
 
 The matrix-free local evaluation strategy follows the reference's ladder, on
 every device: AUTO takes the lattice kinds when the volume block is a 3D
-lattice, else the dense apply at order >= 2.  Variable-coefficient volume
-kernels on the dense and sum-factorized paths raise ``NotImplementedError``
-and name their ``ROADMAP.md`` entry.  The lattice pipeline (``"v2"``, or the
-reference's opt-in ``"v1"`` and ``"xy"``) is read from the environment once,
-when the operator is built (``ops.lattice_sumfact.lattice_variant``).
+lattice, else the dense apply at order >= 2.  The lattice pipeline
+(``"v2"``, or the reference's opt-in ``"v1"`` and ``"xy"``) is read from the
+environment once, when the operator is built
+(``ops.lattice_sumfact.lattice_variant``).
+
+Kernels may read fields (``post/solution.py``): a contribution keeps the
+:class:`FieldAccess` it was assembled with (a snapshot of the manager's
+values) and the element nodes, and the fields are interpolated to the QPs
+wherever the kernel is evaluated.
 
 Strong Dirichlet conditions are imposed **by masking, outside the operator**
 (SPD-preserving): ``y = free * A(free * x) + dir * x`` and
@@ -63,6 +69,7 @@ from .local import (
     domain_tables,
     element_geometry,
     eval_equation_kernel,
+    eval_fields,
     local_diagonal,
     local_diagonal_sumfact,
     local_rhs,
@@ -85,6 +92,7 @@ class _Contribution:
     tables: object
     verts: np.ndarray  # (E, n_verts, 3)
     elem_dofs: np.ndarray  # (E, n_nodes, n_unk) int64
+    field_access: tuple | None  # (FieldAccess, element nodes (E, n_nodes)) or None
     time: float
     options: AssemblyOptions
     block: object = None  # source ElementBlock
@@ -289,8 +297,6 @@ class _SystemBase:
         boundaries; ``mode`` "rhs" or "operator" contributes only that part."""
         if not self._open:
             raise RuntimeError("assemble_problem requires an open assembly (call begin_assembly)")
-        if field_access is not None:
-            raise NotImplementedError("field access is not ported (ROADMAP.md queue A5)")
         if mode not in _MODES:
             raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
         p = kernel.params
@@ -299,6 +305,10 @@ class _SystemBase:
         dof_inds = tuple(range(p.n_unknowns)) if dof_inds is None else tuple(dof_inds)
         if len(dof_inds) != p.n_unknowns:
             raise ValueError("dof_inds length must equal kernel n_unknowns")
+        if field_access is not None and field_access.n_fields != p.n_fields:
+            raise ValueError(
+                f"kernel expects {p.n_fields} fields, field access provides {field_access.n_fields}"
+            )
         for tables, verts, nodes, block, sel, did, bid in self._buckets(kernel, domain_ids, options):
             elem_dofs = self.dofmap.element_dofs(nodes, dof_inds)
             if not (elem_dofs >= 0).all():
@@ -306,7 +316,8 @@ class _SystemBase:
                     f"kernel dof indices {dof_inds} not all active on the assembled domains"
                 )
             c = _Contribution(
-                kernel=kernel, tables=tables, verts=verts, elem_dofs=elem_dofs, time=time,
+                kernel=kernel, tables=tables, verts=verts, elem_dofs=elem_dofs,
+                field_access=(field_access, nodes) if field_access is not None else None, time=time,
                 options=options, block=block, elem_sel=sel, mode=mode, dof_inds=dof_inds,
                 domain_id=did, boundary_id=bid,
             )
@@ -354,6 +365,21 @@ class _SystemBase:
                 qo = options.quadrature_order(blk.order)
                 yield domain_tables(blk.element_type, blk.order, qo), blk.vertices, blk.nodes, blk, None, did, None
 
+    def _fields(self, c: _Contribution, geom, sel=slice(None)):
+        """(values, gradients) of the contribution's fields at the QPs of its
+        elements ``sel`` (``geom`` must carry physical derivatives), or
+        (None, None) for a field-free contribution."""
+        if c.field_access is None:
+            return None, None
+        fa, nodes = c.field_access
+        nodal = fa.gather(nodes[sel]).to(dtype=geom.weights.dtype, device=geom.weights.device)
+        return eval_fields(c.tables, geom, nodal)
+
+    def _eval_operators(self, c: _Contribution, geom, sel=slice(None)):
+        """(A, f) of a contribution's kernel at the QPs of its elements ``sel``."""
+        fv, fd = self._fields(c, geom, sel)
+        return eval_equation_kernel(c.kernel, geom, fv, fd, c.time)
+
     # subclass hooks
     def _begin_impl(self) -> None:
         raise NotImplementedError
@@ -373,10 +399,11 @@ class _SystemBase:
 
     # -- Dirichlet values (``AssembledSystem.hpp:158-286`` analog) ------------
 
-    def set_dirichlet_bc_values(self, values, boundaries=None, dof_inds=None, time=0.0):
+    def set_dirichlet_bc_values(self, values, boundaries=None, dof_inds=None, field_access=None, time=0.0):
         """Set Dirichlet values from a boundary residual kernel (averaged at
-        shared nodes), from per-dof constants on given boundaries, or directly
-        from an array matching the Dirichlet dof list."""
+        shared nodes, reading fields if given), from per-dof constants on
+        given boundaries, or directly from an array matching the Dirichlet
+        dof list."""
         if boundaries is None:  # raw array aligned with the Dirichlet dof list
             vals = torch.as_tensor(values, dtype=self.dtype, device=self.device).reshape(-1, self.n_rhs)
             if vals.shape[0] != len(self.dirichlet_dofs):
@@ -385,7 +412,7 @@ class _SystemBase:
             self._effective_rhs = None
             return
         if callable(getattr(values, "evaluate", None)):
-            self._set_dirichlet_from_kernel(values, boundaries, dof_inds, time)
+            self._set_dirichlet_from_kernel(values, boundaries, dof_inds, field_access, time)
             return
         consts = np.asarray(values, dtype=np.float64).reshape(-1)
         dof_inds = tuple(dof_inds) if dof_inds is not None else tuple(range(len(consts)))
@@ -414,7 +441,7 @@ class _SystemBase:
         self.dirichlet_values = vals
         self._effective_rhs = None
 
-    def _set_dirichlet_from_kernel(self, kernel, boundaries, dof_inds, time) -> None:
+    def _set_dirichlet_from_kernel(self, kernel, boundaries, dof_inds, field_access, time) -> None:
         """Kernel equation i gives the value of dof ``dof_inds[i]`` at each node
         of the boundaries; nodes whose dof is not Dirichlet are skipped."""
         from .values_at_nodes import compute_boundary_values_at_nodes
@@ -422,7 +449,7 @@ class _SystemBase:
         n_eq = kernel.params.n_equations
         dof_inds = tuple(dof_inds) if dof_inds is not None else tuple(range(n_eq))
         vals, mask = compute_boundary_values_at_nodes(
-            kernel, self.mesh, boundaries, time, self.dtype, self.device
+            kernel, self.mesh, boundaries, field_access, time, self.dtype, self.device
         )  # (n_nodes, n_eq, n_rhs)
         nodes = np.nonzero(mask.cpu().numpy())[0]
         out = self.dirichlet_values.clone()
@@ -502,6 +529,43 @@ class _SystemBase:
     def set_solution_vector(self, x: torch.Tensor) -> None:
         self.x = x.reshape(self.n_dofs, self.n_rhs)
 
+    def set_values(self, kernel, domain_ids, dof_inds=None, field_access=None, time=0.0) -> None:
+        """Set solution-vector values from a residual kernel evaluated at
+        nodes (averaged at shared nodes): initial conditions, the analog of
+        ``AssembledSystem::setValues`` (``algsys/AssembledSystem.hpp:158-286``)."""
+        from .values_at_nodes import compute_values_at_nodes
+
+        dof_inds = tuple(dof_inds) if dof_inds is not None else tuple(range(kernel.params.n_equations))
+        vals, mask = compute_values_at_nodes(
+            kernel, self.mesh, domain_ids, field_access, time, self.dtype, self.device
+        )  # (n_nodes, n_eq, n_rhs)
+        nodes = np.nonzero(mask.cpu().numpy())[0]
+        x = self.x.clone()
+        for i, di in enumerate(dof_inds):
+            dofs = self.dofmap.node_dof[nodes, di]
+            ok = dofs >= 0
+            x[torch.as_tensor(dofs[ok], device=self.device)] = vals[
+                torch.as_tensor(nodes[ok], device=self.device), i, :
+            ]
+        self.x = x
+
+    def update_solution(self, dof_inds, solution_manager, slot_inds, rhs_index: int = 0) -> None:
+        """Copy solution components into SolutionManager slots (nodal layout);
+        nodes where a component is not active get zero.  The manager's values
+        are replaced, not written in place, so a FieldAccess taken earlier
+        keeps the values it was taken with."""
+        dof_inds = [int(d) for d in dof_inds]
+        slot_inds = [int(s) for s in slot_inds]
+        if len(dof_inds) != len(slot_inds):
+            raise ValueError("dof_inds and slot_inds must have equal length")
+        nd = self.dofmap.node_dof[:, dof_inds]  # (n_nodes, k)
+        has = torch.as_tensor(nd >= 0, device=self.device)
+        safe = torch.as_tensor(np.where(nd >= 0, nd, 0), device=self.device)
+        vals = torch.where(has, self.x[safe, rhs_index], torch.zeros((), dtype=self.dtype, device=self.device))
+        new = solution_manager.values.clone()
+        new[:, slot_inds] = vals.to(dtype=new.dtype, device=new.device)
+        solution_manager.values = new
+
     def solve(self, solver):
         """Run a solver object; returns its IterSolveResult."""
         return solver.solve(self)
@@ -555,12 +619,14 @@ class MatrixFreeSystem(_SystemBase):
             chunk = int(max(1, (1 << 25) // max(c.tables.n_qp * 128, 1)))
             q_order = c.options.quadrature_order(c.tables.order)
             for s in range(0, E, chunk):
+                sel = slice(s, s + chunk)
                 geom = element_geometry(
-                    c.tables, self._tensor(c.verts[s : s + chunk]), with_phys_ders=not use_sf
+                    c.tables, self._tensor(c.verts[sel]),
+                    with_phys_ders=not use_sf or c.field_access is not None,
                 )
-                A, f = eval_equation_kernel(c.kernel, geom, c.time)
+                A, f = self._eval_operators(c, geom, sel)
                 B = None if use_sf else _basis_stack(c.tables, geom)
-                idx = torch.as_tensor(c.elem_dofs[s : s + chunk].reshape(-1), device=self.device)
+                idx = torch.as_tensor(c.elem_dofs[sel].reshape(-1), device=self.device)
                 if c.mode != "operator":
                     if use_sf:
                         F = local_rhs_sumfact(A, geom, c.tables.order, q_order, c.tables.dim, f)
@@ -681,12 +747,15 @@ class MatrixFreeSystem(_SystemBase):
         dim = c.tables.dim
         ji, w, pieces, amax = [], [], [], None
         for s in range(0, E, chunk):
-            verts = self._tensor(c.verts[s : s + chunk], torch.float64)
-            g = element_geometry(c.tables, verts, with_phys_ders=False)
+            sel = slice(s, s + chunk)
+            verts = self._tensor(c.verts[sel], torch.float64)
+            g = element_geometry(
+                c.tables, verts, with_phys_ders=with_operators and c.field_access is not None
+            )
             ji.append(g.jac_inv.reshape(-1, dim, dim))
             w.append(g.weights.reshape(-1))
             if with_operators:
-                A, _ = eval_equation_kernel(c.kernel, g, c.time)
+                A, _ = self._eval_operators(c, g, sel)
                 shape = A.shape[2:]
                 A = A.reshape(A.shape[0] * A.shape[1], -1)
                 m = A.abs().amax(dim=0).cpu()
@@ -714,20 +783,52 @@ class MatrixFreeSystem(_SystemBase):
             )
         return c.op_data
 
+    @staticmethod
+    def _const_operators(c: _Contribution):
+        """The proven-constant A of a field-free volume kernel, else None (a
+        kernel that reads fields takes the variable-coefficient kinds, as in
+        the reference)."""
+        if c.field_access is not None:
+            return None
+        return _constant_kernel_operators(c.kernel, c.time)
+
+    def _packed_operators(self, c: _Contribution):
+        """(A_t (dim+1, n_eq, n_unk, EQ), Ji_t (dim, dim, EQ), w_t (EQ,)) of a
+        variable-coefficient volume contribution: the reference's per-epoch
+        value pass (``_op_value_builder``), in the system dtype, element-major,
+        built in element chunks."""
+        from .local import pack_sumfact_operator
+
+        E, Q = c.verts.shape[0], c.tables.n_qp
+        chunk = max(1, (1 << 19) // max(Q, 1))
+        parts = []
+        for s in range(0, E, chunk):
+            sel = slice(s, s + chunk)
+            geom = element_geometry(
+                c.tables, self._tensor(c.verts[sel]), with_phys_ders=c.field_access is not None
+            )
+            A, _ = self._eval_operators(c, geom, sel)
+            parts.append(pack_sumfact_operator(A, geom, c.tables.dim))
+        return tuple(torch.cat([p[i] for p in parts], dim=-1).contiguous() for i in range(3))
+
     def _volume_data(self, c: _Contribution):
         """Operator data of a volume contribution, by the reference's strategy
-        ladder: lattice kinds, else dense, sum-factorized or fused, else direct."""
+        ladder: lattice kinds, else dense, sum-factorized or fused (A constant)
+        or their variable-coefficient kinds, else direct."""
         if self._use_lattice_sf(c):
             return self._lattice_data(c)
         use_dense = self._use_dense(c)
         if not (use_dense or self._use_sumfact(c)):
             return self._direct_data(c)
-        A_const = _constant_kernel_operators(c.kernel, c.time)
+        A_const = self._const_operators(c)
         if A_const is None:
-            kind = "dense" if use_dense else "sumfact"
-            raise NotImplementedError(
-                f"variable-coefficient {kind} apply is not ported (ROADMAP.md queue A4)"
-            )
+            A_t, Ji_t, w_t = self._packed_operators(c)
+            if use_dense:
+                from ..ops.dense_eval import dense_basis_matrix
+
+                Ball = self._tensor(dense_basis_matrix(c.tables))
+                return ("dense", A_t, Ji_t, w_t, Ball, self._gather(c))
+            return ("sumfact", A_t, Ji_t, w_t, self._gather(c))
         dim = c.tables.dim
         Ji_t, w_t = self._geometry_packed(c)
         gather = self._gather(c)
@@ -753,7 +854,7 @@ class MatrixFreeSystem(_SystemBase):
         from ..ops.zsweep import detect_diag_geometry
 
         plan = self._lattice_plan(c)
-        A_const = _constant_kernel_operators(c.kernel, c.time)
+        A_const = self._const_operators(c)
         n1, ne, _, inv = plan
         q1 = c.options.quadrature_order(c.tables.order) // 2 + 1
         perm = torch.as_tensor(lattice_qp_perm(ne, q1, inv), device=self.device)
@@ -782,8 +883,8 @@ class MatrixFreeSystem(_SystemBase):
         every other boundary contribution is direct."""
         from ..ops.lattice_sumfact import pack_face_banded
 
-        geom = element_geometry(c.tables, self._tensor(c.verts), with_phys_ders=False)
-        A, _ = eval_equation_kernel(c.kernel, geom, c.time)
+        geom = element_geometry(c.tables, self._tensor(c.verts), with_phys_ders=c.field_access is not None)
+        A, _ = self._eval_operators(c, geom)
         dmask = (A.abs().amax(dim=(0, 1, 3, 4)) > 0).cpu().numpy()
         if not dmask.any():
             return ("zero",)  # contributes nothing to the operator
@@ -806,8 +907,10 @@ class MatrixFreeSystem(_SystemBase):
         basis columns with no support (off-face nodes of a value-only boundary
         kernel) are dropped together with their dofs in the gather."""
         if geom is None:
-            geom = element_geometry(c.tables, self._tensor(c.verts), with_phys_ders=False)
-            A, _ = eval_equation_kernel(c.kernel, geom, c.time)
+            geom = element_geometry(
+                c.tables, self._tensor(c.verts), with_phys_ders=c.field_access is not None
+            )
+            A, _ = self._eval_operators(c, geom)
             dmask = (A.abs().amax(dim=(0, 1, 3, 4)) > 0).cpu().numpy()
         E, Q = geom.weights.shape
         n = c.tables.values.shape[1]
@@ -879,6 +982,14 @@ class MatrixFreeSystem(_SystemBase):
             from .local import local_apply_dense_const
 
             return local_apply_dense_const(d[1], d[2], d[3], d[4], dim, x_loc)
+        if d[0] == "dense":
+            from .local import local_apply_dense_packed
+
+            return local_apply_dense_packed(d[1], d[2], d[3], d[4], dim, x_loc)
+        if d[0] == "sumfact":
+            from .local import local_apply_sumfact_packed
+
+            return local_apply_sumfact_packed(d[1], d[2], d[3], order, q_order, dim, x_loc)
         if d[0] == "sumfact_const":
             from .local import local_apply_sumfact_const
 
@@ -892,14 +1003,14 @@ class MatrixFreeSystem(_SystemBase):
 
         return local_apply_direct(d[1], d[2], d[3], x_loc)
 
-    def _apply(self, x: torch.Tensor, lattice_io: bool) -> torch.Tensor:
-        """Unconstrained operator on (n_dofs, n_rhs) vectors.  Lattice-family
-        contributions work on one channel-leading tensor per rhs column;
-        gather-family ones gather element values per column and scatter-add
-        into one flat accumulator per column."""
+    def _apply(self, x: torch.Tensor, lattice_io: bool, ops) -> torch.Tensor:
+        """Unconstrained operator of the (contribution, op_data) list ``ops``
+        on (n_dofs, n_rhs) vectors.  Lattice-family contributions work on one
+        channel-leading tensor per rhs column; gather-family ones gather
+        element values per column and scatter-add into one flat accumulator
+        per column."""
         from ..ops.lattice_sumfact import face_apply_banded, local_apply_lattice
 
-        _, ops = self._operators()
         tacc: dict = {}
         flat: dict = {}
 
@@ -985,14 +1096,18 @@ class MatrixFreeSystem(_SystemBase):
         return y
 
     def raw_parts(self, layout: str = "dof"):
-        """(fn, consts): the unconstrained operator as fn(x, *consts); the port
-        keeps its operator data on the system, so consts is empty."""
+        """(fn, (ops,)): the unconstrained operator as fn(x, ops), with ops
+        the current assembly's list of (contribution, operator data).  A
+        caller that keeps the consts keeps that assembly's operator after a
+        reassembly, as the reference's consts do (a lagged preconditioner
+        smooths with the operator of its setup)."""
         if layout not in ("dof", "lattice"):
             raise ValueError(f"unknown layout {layout!r}")
         lattice_io = layout == "lattice"
-        if lattice_io and self.lattice_layout_key() is None:
+        key, ops = self._operators()
+        if lattice_io and key is None:
             raise ValueError("lattice layout unavailable for this operator")
-        return (lambda x, *consts: self._apply(x, lattice_io)), ()
+        return (lambda x, ops: self._apply(x, lattice_io, ops)), (ops,)
 
     def diagonal(self) -> torch.Tensor:
         if self._diag is None:
@@ -1091,10 +1206,11 @@ class AssembledSystem(_SystemBase):
         ``sel`` of a contribution, as its mode asks."""
         geom = element_geometry(c.tables, self._tensor(c.verts[sel]))
         if c.mode == "rhs":
-            A, f = eval_equation_kernel(c.kernel, geom, c.time)
+            A, f = self._eval_operators(c, geom, sel)
             F = local_rhs(A, _basis_stack(c.tables, geom), geom.weights, f)
             return None, F.reshape(F.shape[0], -1, self.n_rhs)
-        K, F = local_system(c.kernel, c.tables, geom, c.time)
+        fv, fd = self._fields(c, geom, sel)
+        K, F = local_system(c.kernel, c.tables, geom, fv, fd, c.time)
         return K, (None if c.mode == "operator" else F)
 
     def _add_contribution(self, c: _Contribution) -> None:
@@ -1139,6 +1255,13 @@ class AssembledSystem(_SystemBase):
         data = torch.where(keep, self.data, torch.zeros_like(self.data))
         data = data.index_add(0, self._diag_pos_dev, 1.0 - self.free_mask)
         return data, self._cols, self._indptr, self.n_dofs
+
+    def eliminated_dense(self) -> np.ndarray:
+        """The Dirichlet-eliminated matrix as a dense host float64 array (n, n)."""
+        data, indices, indptr, n = self.eliminated_csr()
+        dense = np.zeros((n, n))
+        dense[np.repeat(np.arange(n), np.diff(indptr)), indices] = data.cpu().numpy()
+        return dense
 
     def _describe_extra(self) -> str:
         return f", nnz={self.nnz}"

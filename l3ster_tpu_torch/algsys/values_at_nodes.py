@@ -1,12 +1,12 @@
-"""Evaluation of boundary residual kernels at nodal points
+"""Evaluation of residual kernels at nodal points
 (PyTorch port of ``l3ster_tpu.algsys.values_at_nodes``).
 
-Analog of ``algsys/ComputeValuesAtNodes.hpp:211-380``: evaluate a boundary
-residual kernel at the nodes of the selected boundary views, with outward
-normals from the parent element map, scatter-add into node arrays with
-contribution counting, and average at shared nodes (a node where two
-boundaries meet takes the mean of their values).  Used for Dirichlet values
-from a kernel.  The domain variant and field access are not ported yet.
+Analog of ``algsys/ComputeValuesAtNodes.hpp:211-380``: evaluate a (domain or
+boundary) residual kernel at the nodes of the selected domains or boundary
+views (boundaries with outward normals from the parent element map), with
+fields if a FieldAccess is given, scatter-add into node arrays with
+contribution counting, and average at shared nodes.  Used for Dirichlet
+values, initial conditions and ``SolutionManager.set_fields_from_kernel``.
 """
 
 from __future__ import annotations
@@ -18,9 +18,9 @@ import torch
 
 from ..mesh.core import Mesh
 from ..mesh.traits import side_node_indices
-from .local import element_geometry, eval_residual_kernel
+from .local import element_geometry, eval_fields, eval_residual_kernel, node_tables
 
-__all__ = ["compute_boundary_values_at_nodes"]
+__all__ = ["compute_values_at_nodes", "compute_boundary_values_at_nodes"]
 
 
 def _scatter_average(node_ids_list, vals_list, n_nodes, n_eq, n_rhs, dtype, device):
@@ -35,14 +35,48 @@ def _scatter_average(node_ids_list, vals_list, n_nodes, n_eq, n_rhs, dtype, devi
     return avg, mask
 
 
-def compute_boundary_values_at_nodes(
-    kernel, mesh: Mesh, boundary_ids, time=0.0, dtype=torch.float64, device=None
+def _evaluate(kernel, tab, verts, nodes, field_access, time, dtype, device):
+    geom = element_geometry(
+        tab, torch.as_tensor(verts, dtype=dtype, device=device), with_phys_ders=field_access is not None
+    )
+    fv = fd = None
+    if field_access is not None:
+        fv, fd = eval_fields(tab, geom, field_access.gather(nodes).to(dtype=dtype, device=device))
+    return eval_residual_kernel(kernel, geom, fv, fd, time)
+
+
+def compute_values_at_nodes(
+    kernel, mesh: Mesh, domain_ids, field_access=None, time=0.0, dtype=torch.float64, device=None
 ):
-    """The kernel at the nodes lying on each boundary side.
+    """Domain variant: the kernel at the nodes of each element.
 
     Returns (values (n_nodes, n_eq, n_rhs), mask (n_nodes,) bool) on
     ``device``: the CUDA device unless the caller names one (without CUDA,
     no device raises; pass ``device="cpu"`` for the CPU).
+    """
+    from .system import _resolve_device
+
+    if kernel.is_boundary:
+        return compute_boundary_values_at_nodes(kernel, mesh, domain_ids, field_access, time, dtype, device)
+    device = _resolve_device(device)
+    p = kernel.params
+    ids_list, vals_list = [], []
+    for _, blk in mesh.blocks(domain_ids):
+        tab = node_tables(blk.element_type, blk.order)
+        vals_list.append(_evaluate(kernel, tab, blk.vertices, blk.nodes, field_access, time, dtype, device))
+        ids_list.append(blk.nodes)
+    if not ids_list:
+        raise ValueError(f"no elements found in domains {list(domain_ids)}")
+    return _scatter_average(ids_list, vals_list, mesh.n_nodes, p.n_equations, p.n_rhs, dtype, device)
+
+
+def compute_boundary_values_at_nodes(
+    kernel, mesh: Mesh, boundary_ids, field_access=None, time=0.0, dtype=torch.float64, device=None
+):
+    """Boundary variant: the kernel at the nodes lying on each boundary side.
+
+    Returns (values (n_nodes, n_eq, n_rhs), mask (n_nodes,) bool) on
+    ``device``: the CUDA device unless the caller names one.
     """
     from .system import _resolve_device
 
@@ -57,10 +91,11 @@ def compute_boundary_values_at_nodes(
             blk = bv.parent_block
             sn = side_node_indices(blk.element_type, blk.order, bv.side)
             tab = _side_node_tables(blk.element_type, blk.order, bv.side)
-            verts = torch.as_tensor(blk.vertices[bv.element_indices], dtype=dtype, device=device)
-            geom = element_geometry(tab, verts, with_phys_ders=False)
-            ids_list.append(blk.nodes[bv.element_indices][:, sn])
-            vals_list.append(eval_residual_kernel(kernel, geom, time))
+            nodes = blk.nodes[bv.element_indices]
+            vals_list.append(
+                _evaluate(kernel, tab, blk.vertices[bv.element_indices], nodes, field_access, time, dtype, device)
+            )
+            ids_list.append(nodes[:, sn])
     if not ids_list:
         raise ValueError(f"no boundary facets found in {list(boundary_ids)}")
     return _scatter_average(ids_list, vals_list, mesh.n_nodes, p.n_equations, p.n_rhs, dtype, device)

@@ -27,6 +27,7 @@ __all__ = [
     "basis_at_points",
     "basis_at_quadrature",
     "basis_at_side_quadrature",
+    "basis_at_nodes",
     "basis_1d",
 ]
 
@@ -142,3 +143,13 @@ def basis_at_side_quadrature(
     pts[:, axis] = float(sign)
     values, derivatives = _tensor_basis(et, order, pts, basis_type)
     return BasisAtPoints(values=values, derivatives=derivatives, points=pts, weights=fwts)
+
+
+@lru_cache(maxsize=None)
+def basis_at_nodes(et: ElementType, order: int, basis_type: BasisType = BasisType.LAGRANGE) -> BasisAtPoints:
+    """Basis tables at the element's own nodal points (values are identity)."""
+    from ..mesh.traits import reference_node_coords
+
+    pts = reference_node_coords(et, order)
+    values, derivatives = _tensor_basis(et, order, pts, basis_type)
+    return BasisAtPoints(values=values, derivatives=derivatives, points=pts)

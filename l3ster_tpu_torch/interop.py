@@ -3,7 +3,9 @@
 An LSFEM system has no learned parameters: its state is the mesh, the
 Dirichlet values and the solution vector.  :func:`mesh_from_numpy` rebuilds a
 port :class:`~l3ster_tpu_torch.mesh.core.Mesh` from the plain numpy arrays of
-a mesh (for instance those of an ``l3ster_tpu`` ``Mesh``), and the layout
+a mesh (for instance those of an ``l3ster_tpu`` ``Mesh``),
+:func:`solution_manager_from_numpy` a port SolutionManager from nodal field
+values (for instance an ``l3ster_tpu`` ``SolutionManager.values``), and the layout
 helpers move (n_dofs, n_rhs) vectors between the dof-major layout
 (node * n_unk + unknown) and the channel-major lattice layout
 (unknown * n_rows + node) that the lattice operator runs on.  Both accept
@@ -17,7 +19,7 @@ import numpy as np
 from .mesh.core import ElementBlock, Mesh
 from .mesh.traits import ElementType
 
-__all__ = ["mesh_from_numpy", "to_lattice_layout", "from_lattice_layout"]
+__all__ = ["mesh_from_numpy", "solution_manager_from_numpy", "to_lattice_layout", "from_lattice_layout"]
 
 
 def mesh_from_numpy(
@@ -53,6 +55,21 @@ def mesh_from_numpy(
         domains=blocks,
         boundary_ids=tuple(int(b) for b in boundary_ids),
     )
+
+
+def solution_manager_from_numpy(mesh: Mesh, values, dtype=None, device=None):
+    """A port SolutionManager on ``mesh`` holding ``values`` (n_nodes, n_slots),
+    in ``dtype`` (float64 by default) on ``device`` (CUDA unless named)."""
+    import torch
+
+    from .post.solution import SolutionManager
+
+    values = np.asarray(values)
+    if values.ndim != 2 or values.shape[0] != mesh.n_nodes:
+        raise ValueError(f"values must be (n_nodes={mesh.n_nodes}, n_slots), got {values.shape}")
+    sm = SolutionManager(mesh, values.shape[1], dtype=dtype or torch.float64, device=device)
+    sm.values = torch.as_tensor(values, dtype=sm.dtype, device=sm.device).clone()
+    return sm
 
 
 def _relayout(v, a: int, b: int):

@@ -26,7 +26,7 @@ from .core import ElementBlock, Mesh
 from .traits import ElementType, native_dim, node_lattice, reference_node_coords
 from ..basis.tables import basis_at_points
 
-__all__ = ["convert_mesh_to_order", "lattice_renumber"]
+__all__ = ["convert_mesh_to_order", "extract_q1_mesh", "lattice_renumber"]
 
 
 @dataclass(frozen=True)
@@ -273,3 +273,34 @@ def lattice_renumber(mesh: Mesh) -> Mesh:
     nc[new_ids] = coords
     mesh.node_coords = nc
     return mesh
+
+
+def extract_q1_mesh(mesh: Mesh) -> tuple[Mesh, np.ndarray]:
+    """The inverse of :func:`convert_mesh_to_order`: the same mesh at order 1.
+
+    Coarse nodes are exactly the corner vertices of the input mesh's
+    elements (geometry is Q1 everywhere, so no information is lost).  Every
+    block — volume AND boundary facet — is re-expressed on its corner nodes
+    with compact renumbering, keeping all domain/boundary ids, so kernels
+    registered on the fine mesh replay verbatim on the coarse one.
+
+    Returns ``(q1_mesh, fine_node_ids)`` where ``fine_node_ids[c]`` is the
+    fine-mesh node id of coarse node ``c`` (sorted ascending) — the injection
+    map used by the unstructured p-multigrid (``solve/pmg.py``) to restrict
+    nodal fields.  The reference has no analog (its multilevel story is
+    matrix-based Ifpack2/MueLu, ``solve/Ifpack2Preconditioners.hpp:85-192``);
+    this is the mesh-side half of the matrix-free p->1 hierarchy.
+    """
+    parts = [blk.corner_nodes.ravel() for _, blk in mesh.blocks()]
+    fine_ids = np.unique(np.concatenate(parts))
+    remap = np.full(mesh.n_nodes, -1, dtype=np.int64)
+    remap[fine_ids] = np.arange(len(fine_ids), dtype=np.int64)
+    domains: dict[int, list[ElementBlock]] = {}
+    for did in sorted(mesh.domains):
+        domains[did] = [
+            ElementBlock(blk.element_type, 1, remap[blk.corner_nodes], blk.vertices)
+            for blk in mesh.domains[did]
+        ]
+    coords = np.asarray(mesh.node_coords)[fine_ids]
+    mesh1 = Mesh(mesh.dim, len(fine_ids), coords, domains, boundary_ids=mesh.boundary_ids)
+    return mesh1, fine_ids

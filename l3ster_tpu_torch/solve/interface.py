@@ -15,12 +15,24 @@ class IterSolverOpts:
     "rhs" (norm of b, the default), "initial" (norm of the initial
     residual), or "none" (absolute).  ``verbosity``: 0 silent, 1 prints a
     summary line per solve.
+
+    ``chunk``: 0 (default) runs the solve as one loop.  ``chunk=k`` runs at
+    most k iterations at a time and warm-restarts from the current iterate
+    until ``tol`` or ``max_iters``, the analog of Belos' outer ``restarts``
+    (``solve/SolverInterface.hpp:26-37``); for CG each restart drops the
+    conjugate direction (restarted CG: slightly more iterations), and the
+    last chunk may overshoot ``max_iters`` by at most ``chunk - 1``.
+    Incompatible with ``residual_scaling="initial"``.  ``restart`` is the
+    GMRES restart length; GMRES is not ported, so nothing reads it: it is
+    kept so that options written for the reference construct unchanged.
     """
 
     tol: float = 1e-10
     max_iters: int = 5000
+    restart: int = 50  # GMRES restart length (read by no solver yet)
     verbosity: int = 0
     residual_scaling: str = "rhs"
+    chunk: int = 0  # >0: at most this many iterations before a warm restart
 
 
 @dataclass(frozen=True)

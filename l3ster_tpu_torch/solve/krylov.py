@@ -43,15 +43,17 @@ def _precond_parts(precond, system, layout: str = "dof"):
     epoch, layout): repeated solves between reassemblies reuse the setup,
     and ``end_assembly`` (which bumps the epoch) invalidates it.  An integer
     ``lag = k`` attribute reuses the setup for up to k reassemblies (epochs
-    are bucketed by k + 1)."""
+    are bucketed by k + 1); ``lag = "auto"`` keeps it until the solver sees
+    the iteration count degrade past ``refresh_ratio`` times the count of
+    the first solve after the setup (:func:`_note_precond_iters`)."""
     epoch = getattr(system, "_assembly_epoch", None)
     lag = getattr(precond, "lag", 0) or 0
-    if lag == "auto":
-        raise NotImplementedError(
-            "lag='auto' needs the solver's iteration feedback, which is not ported "
-            "(ROADMAP.md queue A7, PMultigrid)"
-        )
-    if lag and epoch is not None:
+    if lag == "auto" and epoch is not None:
+        st = _auto_refresh_state(system, precond)
+        if st["stale"] or st["epoch"] is None:
+            st["epoch"], st["stale"], st["baseline"] = epoch, False, None
+        epoch = st["epoch"]
+    elif lag and epoch is not None:
         epoch = epoch - (epoch % (int(lag) + 1))
     key = None
     if epoch is not None:
@@ -85,6 +87,59 @@ def _precond_parts(precond, system, layout: str = "dof"):
     if key is not None:
         cache[key] = parts
     return parts
+
+
+def _auto_refresh_state(system, precond) -> dict:
+    """The ``lag="auto"`` refresh state of one preconditioner object on a
+    system, keyed by ``id`` with the object pinned in the value (two equal
+    preconditioner configurations keep separate states)."""
+    states = getattr(system, "_precond_auto", None)
+    if states is None:
+        states = system._precond_auto = {}
+    st = states.get(id(precond))
+    if st is None:
+        st = states[id(precond)] = {"epoch": None, "stale": True, "baseline": None, "_pin": precond}
+    return st
+
+
+def _note_precond_iters(system, precond, iters: int) -> None:
+    """Feed a solve's iteration count back to a ``lag="auto"`` preconditioner:
+    the first solve after a setup sets the baseline, and a solve taking more
+    than ``refresh_ratio`` times the baseline marks the setup stale (it is
+    redone at the next setup).  No-op for other preconditioners."""
+    if getattr(precond, "lag", 0) != "auto" or iters <= 0:
+        return
+    st = _auto_refresh_state(system, precond)
+    if st["baseline"] is None:
+        st["baseline"] = max(int(iters), 1)
+    elif iters > float(getattr(precond, "refresh_ratio", 1.35)) * st["baseline"]:
+        st["stale"] = True
+
+
+def _chunk_iters(o: IterSolverOpts) -> int:
+    """The iteration bound of one run of the loop under ``IterSolverOpts.chunk``."""
+    if not o.chunk:
+        return o.max_iters
+    if o.residual_scaling == "initial":
+        raise ValueError(
+            "chunked solves are incompatible with residual_scaling='initial' "
+            "(each restart would re-normalize to its own initial residual)"
+        )
+    return min(int(o.chunk), o.max_iters)
+
+
+def _run_chunked(solve, o: IterSolverOpts, x0):
+    """Drive ``solve(x0) -> (x, iters, res)`` to convergence with warm
+    restarts of at most ``chunk`` iterations (``IterSolverOpts.chunk``).
+    Returns (x, total iterations, res)."""
+    x, it, res = solve(x0)
+    total = it
+    if not o.chunk:
+        return x, total, res
+    while total < o.max_iters and res > o.tol and it > 0:
+        x, it, res = solve(x)
+        total += it
+    return x, total, res
 
 
 def _col_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -148,11 +203,13 @@ def cg_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, resi
     return x, int(it), float(res)
 
 
-def _finish_iter_solve(system, name: str, o: IterSolverOpts, it: int, res: float):
-    """Shared solve epilogue: LOUD cap-hit signal and the result record.
+def _finish_iter_solve(system, precond, name: str, o: IterSolverOpts, it: int, res: float):
+    """Shared solve epilogue: auto-lag feedback, LOUD cap-hit signal and the
+    result record.
 
     A solve that stops at ``max_iters`` without meeting ``tol`` always raises
     a ``RuntimeWarning`` and is recorded on the system for ``describe()``."""
+    _note_precond_iters(system, precond, it)
     converged = res <= o.tol
     capped = (not converged) and it >= o.max_iters
     result = IterSolveResult(tol=res, num_iters=it, converged=converged, capped=capped)
@@ -176,7 +233,9 @@ class CG:
 
     Solves in the lattice layout when the operator and the preconditioner
     support it, converting the vectors once per solve; the preconditioner's
-    setup is cached per assembly epoch (:func:`_precond_parts`)."""
+    setup is cached per assembly epoch (:func:`_precond_parts`).  Under
+    ``opts.chunk`` the loop restarts every ``chunk`` iterations
+    (:func:`_run_chunked`)."""
 
     opts: IterSolverOpts = field(default_factory=IterSolverOpts)
     precond: object = field(default_factory=Identity)
@@ -190,11 +249,15 @@ class CG:
         b, x0 = system.effective_rhs(), system.solution_vector()
         if lattice:
             b, x0 = system.to_lattice_layout(b), system.to_lattice_layout(x0)
-        x, it, res = cg_solve(
-            lambda v: fn(v, *consts), b, x0=x0, precond=lambda r: M_fn(r, *M_consts), tol=o.tol,
-            max_iters=o.max_iters, residual_scaling=o.residual_scaling,
+        inner = _chunk_iters(o)
+        x, it, res = _run_chunked(
+            lambda x_start: cg_solve(
+                lambda v: fn(v, *consts), b, x0=x_start, precond=lambda r: M_fn(r, *M_consts),
+                tol=o.tol, max_iters=inner, residual_scaling=o.residual_scaling,
+            ),
+            o, x0,
         )
         if lattice:
             x = system.from_lattice_layout(x)
         system.set_solution_vector(x)
-        return _finish_iter_solve(system, "CG", o, it, res)
+        return _finish_iter_solve(system, self.precond, "CG", o, it, res)

@@ -160,11 +160,7 @@ def _assembled_dense_inv(system, axes) -> np.ndarray:
     from ..common.enums import OperatorEvaluationStrategy
 
     s1 = _p1_system(system, axes, OperatorEvaluationStrategy.GLOBAL_ASSEMBLY)
-    data, indices, indptr, n = s1.eliminated_csr()
-    dense = np.zeros((n, n))
-    rows = np.repeat(np.arange(n), np.diff(indptr))
-    dense[rows, indices] = data.cpu().numpy()
-    return np.linalg.inv(dense)
+    return np.linalg.inv(s1.eliminated_dense())
 
 
 def _power_start(level: int, n: int, dtype, device) -> torch.Tensor:

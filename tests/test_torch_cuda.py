@@ -564,3 +564,60 @@ def test_assembled_system_cuda_matches_cpu(cuda):
     assert _rel(gpu.data.cpu(), cpu.data) < 1e-11
     assert _rel(gpu.diagonal().cpu(), cpu.diagonal()) < 1e-11
     assert _rel(gpu.eliminated_csr()[0].cpu(), cpu.eliminated_csr()[0]) < 1e-11
+
+
+def _karman_system(device, strategy="AUTO", seed=15):
+    """The mini Karman case (``tests/test_pmg.py:_cyl_mesh(order=2)``): the
+    BDF2 Navier-Stokes operator reading four seeded fields, matrix-free, f64."""
+    from l3ster_tpu_torch.models.kernels import navier_stokes_outlet_bc, navier_stokes_uvop_2d
+
+    mesh = lp.generate_mesh(
+        lp.make_cylinder_in_channel_2d(
+            left_offset=4.0, right_offset=6.0, bottom_offset=3.0, top_offset=3.0, n_circumf=16, n_radial=4,
+            n_left=3, n_right=6, n_bottom=2, n_top=2, q_radial=1.3, q_right=1.1,
+        ),
+        order=2,
+    )
+    problem = lp.ProblemDefinition(4, [0])
+    bcs = lp.BCDefinition(problem)
+    bcs.define_dirichlet([3, 1, 2, 5], [0, 1])
+    params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
+    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=torch.float64, device=device)
+    fields = np.random.default_rng(seed).normal(scale=0.05, size=(mesh.n_nodes, 4))
+    fields[:, [0, 2]] += 1.0
+    man = lp.interop.solution_manager_from_numpy(mesh, fields, device=device)
+    opts = lp.AssemblyOptions(value_order=1, derivative_order=1, eval_strategy=getattr(lp.LocalEvalStrategy, strategy))
+    system.begin_assembly()
+    system.assemble_problem(navier_stokes_uvop_2d(0.02, dt=0.2), [0], man.field_access([0, 1, 2, 3]), options=opts)
+    system.assemble_problem(navier_stokes_outlet_bc(0.02), [4], dof_inds=(0, 1, 3))
+    system.end_assembly()
+    return system
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,kind", [("AUTO", "dense"), ("SUM_FACT", "sumfact")])
+def test_karman_var_apply_cuda_matches_cpu(cuda, strategy, kind):
+    """The field-coupled variable-coefficient applies (``dense`` under AUTO,
+    ``sumfact``) in f64 on the card against the CPU: apply, diagonal and
+    effective rhs, to 1e-11."""
+    gpu, cpu = _karman_system(cuda, strategy), _karman_system("cpu", strategy)
+    assert [d[0] for _, d in gpu._operators()[1]] == [kind, "direct"]
+    x = torch.as_tensor(np.random.default_rng(16).normal(size=(cpu.n_dofs, 1)))
+    assert _rel(gpu.operator()(x.to(cuda)).cpu(), cpu.operator()(x)) < 1e-11
+    assert _rel(gpu.diagonal().cpu(), cpu.diagonal()) < 1e-11
+    assert _rel(gpu.effective_rhs().cpu(), cpu.effective_rhs()) < 1e-11
+
+
+@pytest.mark.cuda
+def test_pmg_vcycle_cuda_matches_cpu(cuda):
+    """One PMultigrid V-cycle on the Karman operator in f64 on the card (its
+    Q1 coarse level assembled on the card, inverted on the host) against the
+    CPU, from the same power-iteration start, to 1e-11."""
+    r = torch.as_tensor(np.random.default_rng(17).normal(size=(_karman_system("cpu").n_dofs, 1)))
+    out = {}
+    for d in (cuda, "cpu"):
+        s = _karman_system(d)
+        apply, consts = lp.PMultigrid().setup_parts(s)
+        assert all(c.device.type == torch.device(d).type for c in consts if isinstance(c, torch.Tensor))
+        out[d] = apply(r.to(d), *consts).cpu()
+    assert _rel(out[cuda], out["cpu"]) < 1e-11

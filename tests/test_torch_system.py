@@ -96,11 +96,22 @@ def fast_reference_compiles():
     """While a module that drives the reference runs, its programs compile
     without most optimizations: the reference's eager setup compiles hundreds
     of small programs, and at these sizes their compile time outweighs what
-    optimizing them saves.  The other port test modules that drive the
-    reference import this fixture (a long iterative solve re-enables them
-    with :func:`xla_optimizations`)."""
-    with xla_optimizations(False):
-        yield
+    optimizing them saves.  Every program compiled meanwhile also goes to the
+    persistent JAX cache, not only those taking 0.5 s or more
+    (``tests/conftest.py``): without optimizations most compile in less, and
+    a run with a warm cache then compiles none of them (the compiled code is
+    the same either way).  The other port test modules that drive the
+    reference import this fixture (a long iterative solve re-enables the
+    optimizations with :func:`xla_optimizations`)."""
+    import jax
+
+    prev = jax.config.jax_persistent_cache_min_compile_time_secs
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    try:
+        with xla_optimizations(False):
+            yield
+    finally:
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", prev)
 
 
 def jax_run(fn, *args):
@@ -287,8 +298,11 @@ def test_cg_accepts_reference_preconditioner_protocol():
 
 def test_precond_lag_buckets_epochs():
     """An integer ``lag = k`` reuses a setup for up to k reassemblies (epochs
-    bucketed by k + 1); ``lag="auto"`` needs the solver's iteration feedback,
-    which is not ported, and raises."""
+    bucketed by k + 1); ``lag="auto"`` keeps a setup across reassemblies
+    until a solve takes more than ``refresh_ratio`` times the iterations of
+    the first solve after it, and then sets up again."""
+    from l3ster_tpu_torch.solve.krylov import _note_precond_iters
+
     system, pre = _DiagSystem(), _SetupOnly()
     pre.lag = 1
     cg = lp.CG(lp.IterSolverOpts(tol=1e-12, max_iters=10), precond=pre)
@@ -299,5 +313,13 @@ def test_precond_lag_buckets_epochs():
         counts.append(pre.setups)
     assert counts == [1, 1, 2, 2]
     pre.lag = "auto"
-    with pytest.raises(NotImplementedError, match="A7"):
-        cg.solve(system)
+    counts = []
+    for epoch in (6, 7, 8, None, 9, 10):
+        if epoch is None:
+            _note_precond_iters(system, pre, 2)  # 2 > 1.35 x 1: stale
+            continue
+        system._assembly_epoch = epoch
+        system.x = torch.zeros_like(system.x)
+        assert cg.solve(system).num_iters == 1  # the baseline: one iteration
+        counts.append(pre.setups)
+    assert counts == [3, 3, 3, 4, 4]

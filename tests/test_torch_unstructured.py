@@ -203,8 +203,9 @@ def test_cg_jacobi_solve_matches_reference(sumfact_pair):
 
 def test_direct_volume_apply_and_variable_coefficients(meshes, sumfact_pair):
     """DIRECT runs the volume through the direct apply, which equals the
-    sum-factorized one; a variable-coefficient kernel on the dense and
-    sum-factorized kinds raises and names ROADMAP.md."""
+    sum-factorized one; a variable-coefficient kernel takes the dense and
+    sum-factorized kinds with A stored per QP (``dense``, ``sumfact``), and
+    each equals the direct apply of the same kernel."""
     _, sp = sumfact_pair
     sd = build(lp, meshes[1], "DIRECT")
     assert [d[0] for _, d in sd._operators()[1]] == ["direct"] * 5
@@ -217,7 +218,8 @@ def test_direct_volume_apply_and_variable_coefficients(meshes, sumfact_pair):
 
     problem = lp.ProblemDefinition(4, [0])
     params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
-    for strategy in ("AUTO", "SUM_FACT"):
+    ys = {}
+    for strategy in ("DIRECT", "AUTO", "SUM_FACT"):
         s = lp.make_algebraic_system(meshes[1], problem, None, params, dtype=torch.float64, device="cpu")
         s.begin_assembly()
         s.assemble_problem(
@@ -225,5 +227,8 @@ def test_direct_volume_apply_and_variable_coefficients(meshes, sumfact_pair):
             options=lp.AssemblyOptions(eval_strategy=getattr(lp.LocalEvalStrategy, strategy)),
         )
         s.end_assembly()
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            s.operator()(x)
+        kind = s._operators()[1][0][1][0]
+        assert kind == {"DIRECT": "direct", "AUTO": "dense", "SUM_FACT": "sumfact"}[strategy]
+        ys[strategy] = s.operator()(x)
+    assert _rel(ys["AUTO"], ys["DIRECT"]) < REL
+    assert _rel(ys["SUM_FACT"], ys["DIRECT"]) < REL
