@@ -45,10 +45,10 @@ from .post.integral import compute_integral, compute_norm_l2
 from .post.solution import FieldAccess, SolutionManager
 from .solve.direct import Klu2, Lapack
 from .solve.interface import IterSolveResult, IterSolverOpts
-from .solve.krylov import CG
+from .solve.krylov import CG, Gmres
 from .solve.lowordermg import LowOrderMG
 from .solve.pmg import PMultigrid
-from .solve.precond import Identity, Jacobi
+from .solve.precond import ILU0, ILUT, SGS, BlockJacobi, Chebyshev, Identity, Jacobi, Richardson
 from . import models  # models.kernels: the canonical PDE kernels
 
 __version__ = "0.1.0"

@@ -8,7 +8,12 @@ and the layout helpers.  Two systems build on it:
 * :class:`AssembledSystem` holds an explicit CSR matrix: local LSFEM
   matrices (``local_system``) are scattered with ``index_add_`` into the
   values of a host-built sparsity pattern, and the SpMV is a sparse CSR
-  product (condensation is not ported);
+  product.  Under ELEMENT_BOUNDARY static condensation the element-interior
+  nodes are left out of the dof numbering: their couplings accumulate per
+  element block, and ``end_assembly`` adds each element's Schur complement
+  (batched Cholesky of the interior block) into the boundary system;
+  ``recover_condensed_solution`` gives the interior values back after a
+  solve;
 * :class:`MatrixFreeSystem` keeps the contributions and applies them
   without a matrix, in two families:
 
@@ -63,6 +68,7 @@ from ..common.problem import AlgebraicSystemParams, AssemblyOptions, BCDefinitio
 from ..dofs.dofmap import build_dof_map
 from ..interop import from_lattice_layout, to_lattice_layout
 from ..mesh.core import Mesh
+from ..mesh.traits import boundary_node_indices, internal_node_indices
 from .local import (
     _basis_stack,
     _const,
@@ -230,8 +236,6 @@ class _SystemBase:
         dtype=torch.float32,
         device=None,
     ):
-        if params.cond_policy != CondensationPolicy.NONE:
-            raise NotImplementedError("static condensation is not ported (ROADMAP.md queue A8, condensation)")
         if bc_def is not None and (bc_def.periodic or bc_def.normalized_dofs):
             raise NotImplementedError(
                 "periodic and normalization conditions are not ported (ROADMAP.md queue A1)"
@@ -242,7 +246,7 @@ class _SystemBase:
         self.params = params
         self.dtype = dtype
         self.device = _resolve_device(device)
-        self.dofmap = build_dof_map(mesh, problem)
+        self.dofmap = build_dof_map(mesh, problem, condensed_nodes=self._condensed_nodes())
         self.n_dofs = self.dofmap.n_dofs
         self.n_rhs = params.n_rhs
         self.dirichlet_dofs = collect_dirichlet_dofs(mesh, self.dofmap, bc_def)
@@ -258,6 +262,27 @@ class _SystemBase:
         self._contribs: list[_Contribution] = []
         self._assembly_epoch = 0  # bumped by end_assembly; keys preconditioner setups
         self._last_solve_result = None
+
+    def _condensed_nodes(self) -> np.ndarray | None:
+        """The interior nodes of every top-dimension volume block under
+        ELEMENT_BOUNDARY condensation (left out of the dof numbering), else None."""
+        if self.params.cond_policy != CondensationPolicy.ELEMENT_BOUNDARY:
+            return None
+        parts = []
+        for did, blk in self.mesh.blocks():
+            if blk.dim == self.mesh.dim and did not in self.mesh.boundary_ids:
+                inn = internal_node_indices(blk.element_type, blk.order)
+                if len(inn):
+                    parts.append(blk.nodes[:, inn].reshape(-1))
+        return np.unique(np.concatenate(parts)) if parts else None
+
+    def _dofs_valid(self, elem_dofs: np.ndarray, block) -> bool:
+        """Every dof of the contribution is numbered; on a condensed block only
+        its element-boundary nodes need to be."""
+        if self.params.cond_policy == CondensationPolicy.ELEMENT_BOUNDARY and block.dim == self.mesh.dim:
+            bn = boundary_node_indices(block.element_type, block.order)
+            return bool((elem_dofs[:, bn, :] >= 0).all())
+        return bool((elem_dofs >= 0).all())
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype, device=self.device)
@@ -311,7 +336,7 @@ class _SystemBase:
             )
         for tables, verts, nodes, block, sel, did, bid in self._buckets(kernel, domain_ids, options):
             elem_dofs = self.dofmap.element_dofs(nodes, dof_inds)
-            if not (elem_dofs >= 0).all():
+            if not self._dofs_valid(elem_dofs, block):
                 raise ValueError(
                     f"kernel dof indices {dof_inds} not all active on the assembled domains"
                 )
@@ -598,6 +623,8 @@ class MatrixFreeSystem(_SystemBase):
         dtype=torch.float32,
         device=None,
     ):
+        if params.cond_policy != CondensationPolicy.NONE:
+            raise ValueError("matrix-free evaluation cannot be combined with static condensation")
         super().__init__(mesh, problem, bc_def, params, dtype, device)
         self._diag = None
         self._ops = None  # (lattice_key, [(contribution, op_data)]) once built
@@ -1121,18 +1148,107 @@ class MatrixFreeSystem(_SystemBase):
 # local assembly bounds the (E, Q * n_eq, n_loc) M tensor of a chunk of
 # elements to this many entries
 _M_ENTRIES = 1 << 26
+# the assembled system's local matrices, data, rhs and Schur step, whatever
+# its dtype (cast to it at end_assembly): a float32 p = 6 local matrix sums
+# 12,096 products per entry and carries ~1e-5 relative rounding on the
+# card, which the condensed system's solution amplified to 4e-3 in T
+_ASM_DTYPE = torch.float64
 
 
 def _csr_apply(x, A):
     return A @ x
 
 
+@dataclass
+class _CondensationAgg:
+    """Per-block accumulator for ELEMENT_BOUNDARY static condensation
+    (``algsys/StaticCondensationManager.hpp:152-207`` analog): every
+    contribution touching the block's elements adds its interior-coupled
+    sub-blocks here; the Schur complement is formed once at end_assembly and
+    the interior solution recovered after the solve."""
+
+    block: object
+    act: np.ndarray  # active dof components on this block's domain
+    b_nodes: np.ndarray
+    i_nodes: np.ndarray
+    b_dofs: np.ndarray  # (E, nb) global dof ids of the boundary space
+    Kbi: torch.Tensor  # (E, nb, ni)
+    Kii: torch.Tensor  # (E, ni, ni)
+    Fi: torch.Tensor  # (E, ni, n_rhs)
+    Y: torch.Tensor | None = None  # Kii^-1 Kib
+    Z: torch.Tensor | None = None  # Kii^-1 Fi
+
+
+def _cond_selectors(act, b_nodes, i_nodes, n_nodes, dof_inds):
+    """Split a contribution's local (node-major) dof layout into boundary and
+    interior selections plus their positions in the block aggregate's
+    boundary/interior spaces (``StaticCondensationManager.hpp`` index maps).
+
+    Returns (b_sel, tb, i_sel, ti): ``K[:, b_sel][:, :, i_sel]`` adds into
+    aggregate coordinates ``(tb, ti)``."""
+    n_unk = len(dof_inds)
+    n_act = len(act)
+    apos = np.searchsorted(act, np.asarray(dof_inds))
+    if not np.array_equal(act[np.minimum(apos, n_act - 1)], np.asarray(dof_inds)):
+        raise ValueError("kernel dof indices not active on the condensed block's domain")
+    i_rank = {int(n): r for r, n in enumerate(i_nodes)}
+    b_rank = {int(n): r for r, n in enumerate(b_nodes)}
+    b_sel, tb, i_sel, ti = [], [], [], []
+    for n in range(n_nodes):
+        for u in range(n_unk):
+            j = n * n_unk + u
+            if n in i_rank:
+                i_sel.append(j)
+                ti.append(i_rank[n] * n_act + apos[u])
+            else:
+                b_sel.append(j)
+                tb.append(b_rank[n] * n_act + apos[u])
+    return tuple(np.asarray(a, dtype=np.int64) for a in (b_sel, tb, i_sel, ti))
+
+
+def _schur_solve(Kii, Kib, Fi):
+    """Batched Schur factor solves: Y = Kii^-1 Kib, Z = Kii^-1 Fi.
+
+    LSFEM interior blocks are SPD (weighted A^T A), so the solves go through
+    batched Cholesky.  Elements whose interior was never assembled (all
+    diagonal entries zero) are substituted by the identity and their Y, Z
+    zeroed, so they contribute nothing.  A partly assembled interior (some
+    diagonal entries zero: singular) raises, as the reference does
+    (``StaticCondensationManager.hpp:152-207`` asserts the condensed space
+    is fully covered), and so does a block whose Cholesky factorization
+    fails in the working dtype (the reference's would be NaN)."""
+    row_ok = Kii.diagonal(dim1=1, dim2=2).abs() > 0
+    all_zero = ~row_ok.any(dim=1)
+    partial = ~all_zero & ~row_ok.all(dim=1)
+    if bool(partial.any()):
+        raise RuntimeError(
+            "static condensation: element interiors only partially assembled "
+            "(kernel dof_inds must cover all active dofs of the condensed domain)"
+        )
+    eye = torch.eye(Kii.shape[1], dtype=Kii.dtype, device=Kii.device)
+    L, info = torch.linalg.cholesky_ex(torch.where(all_zero[:, None, None], eye, Kii))
+    n_failed = int((info != 0).sum())
+    if n_failed:
+        raise RuntimeError(
+            f"static condensation: the Cholesky factorization of {n_failed} element "
+            f"interior block(s) failed in {Kii.dtype} (not positive definite at this precision)"
+        )
+    ok = (~all_zero).to(Kii.dtype)[:, None, None]
+    return torch.cholesky_solve(Kib, L) * ok, torch.cholesky_solve(Fi, L) * ok
+
+
 class AssembledSystem(_SystemBase):
-    """Explicit CSR system (``algsys/AssembledSystem.hpp``), without static
-    condensation.  The sparsity pattern and the scatter positions are built
-    on the host in numpy; local matrices are computed on the device in
-    element chunks (the reference takes a block at once) and scattered into
-    ``data`` with ``index_add_``; the SpMV is the CSR product ``A @ x``."""
+    """Explicit CSR system (``algsys/AssembledSystem.hpp``).  The sparsity
+    pattern and the scatter positions are built on the host in numpy; local
+    matrices are computed on the device in element chunks (the reference
+    takes a block at once) and scattered into ``data`` with ``index_add_``;
+    the SpMV is the CSR product ``A @ x``.  Under ELEMENT_BOUNDARY
+    condensation a volume block's element-boundary block goes to ``data`` and
+    its interior couplings to the block's :class:`_CondensationAgg`.  Local
+    matrices are formed, and ``data``, ``rhs`` and the Schur step
+    accumulated, in float64 (``_ASM_DTYPE``); ``end_assembly`` casts ``data``
+    and ``rhs`` to the system's dtype, in which the solves run (the
+    reference assembles in the system's dtype)."""
 
     def __init__(
         self,
@@ -1145,32 +1261,39 @@ class AssembledSystem(_SystemBase):
     ):
         super().__init__(mesh, problem, bc_def, params, dtype, device)
         self._build_sparsity()
-        self.data = self._zeros((self.nnz,))
+        self.data = self._asm_zeros((self.nnz,))
         self._pos_cache: OrderedDict[bytes, np.ndarray] = OrderedDict()
         self._csr = None
+        self._cond_aggs: dict[int, _CondensationAgg] = {}
 
     # -- sparsity (``algsys/SparsityGraph.hpp`` analog, host-side) ------------
 
     def _build_sparsity(self) -> None:
-        keys_parts = [np.arange(self.n_dofs, dtype=np.int64) * self.n_dofs + np.arange(self.n_dofs)]
+        """The diagonal and every pair of dofs of one element: the pattern of
+        B^T B for each block's element-dof incidence B (a SciPy sparse
+        product, which forms each row's columns without sorting all the
+        pairs), the reference's set of keys (``row * n + col``) in order."""
+        import scipy.sparse as sp
+
+        n = self.n_dofs
+        pattern = sp.identity(n, dtype=np.int32, format="csr")
         for domain_ids, mask in self.problem.entries:
             dof_cols = np.nonzero(mask)[0]
             for _, blk in self.mesh.blocks(domain_ids):
                 dofs = self.dofmap.node_dof[blk.nodes][:, :, dof_cols].reshape(blk.n_elements, -1)
                 dofs = dofs[:, (dofs >= 0).all(axis=0)] if (dofs < 0).any() else dofs
-                L = dofs.shape[1]
-                chunk = max(1, 2**22 // max(L * L, 1))  # element chunks bound the host memory
-                for s in range(0, dofs.shape[0], chunk):
-                    d = dofs[s : s + chunk]
-                    r = np.repeat(d, L, axis=1).reshape(-1)
-                    ccol = np.tile(d, (1, L)).reshape(-1)
-                    keys_parts.append(np.unique(r * self.n_dofs + ccol))
-        keys = np.unique(np.concatenate(keys_parts))
+                E, L = dofs.shape
+                B = sp.csr_matrix(
+                    (np.ones(E * L, np.int32), dofs.reshape(-1), np.arange(0, E * L + 1, L)), shape=(E, n)
+                )
+                pattern = pattern + (B.T @ B).tocsr()
+        pattern.sort_indices()
+        self._indptr = pattern.indptr.astype(np.int64)
+        self._rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(self._indptr))
+        self._cols = pattern.indices.astype(np.int64)
+        keys = self._rows * n + self._cols
         self._keys = keys
         self.nnz = len(keys)
-        self._rows = keys // self.n_dofs
-        self._cols = keys % self.n_dofs
-        self._indptr = np.concatenate([[0], np.cumsum(np.bincount(self._rows, minlength=self.n_dofs))])
         self._diag_pos = np.searchsorted(keys, np.arange(self.n_dofs, dtype=np.int64) * (self.n_dofs + 1))
         dev = self.device
         self._cols_dev = torch.as_tensor(self._cols, device=dev)
@@ -1197,14 +1320,19 @@ class AssembledSystem(_SystemBase):
         self._pos_cache[key] = pos
         return pos
 
+    def _asm_zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=_ASM_DTYPE, device=self.device)
+
     def _begin_impl(self) -> None:
-        self.data = self._zeros((self.nnz,))
+        self.data = self._asm_zeros((self.nnz,))
+        self.rhs = self._asm_zeros((self.n_dofs, self.n_rhs))
         self._csr = None
+        self._cond_aggs = {}
 
     def _local_kf(self, c: _Contribution, sel: slice):
         """(K (E, L, L) or None, F (E, L, n_rhs) or None) of the elements
         ``sel`` of a contribution, as its mode asks."""
-        geom = element_geometry(c.tables, self._tensor(c.verts[sel]))
+        geom = element_geometry(c.tables, self._tensor(c.verts[sel], _ASM_DTYPE))
         if c.mode == "rhs":
             A, f = self._eval_operators(c, geom, sel)
             F = local_rhs(A, _basis_stack(c.tables, geom), geom.weights, f)
@@ -1213,10 +1341,22 @@ class AssembledSystem(_SystemBase):
         K, F = local_system(c.kernel, c.tables, geom, fv, fd, c.time)
         return K, (None if c.mode == "operator" else F)
 
+    @staticmethod
+    def _chunk(c: _Contribution) -> int:
+        """Elements per local assembly chunk (bounds the M tensor, ``_M_ENTRIES``)."""
+        n_loc = c.elem_dofs.shape[1] * c.elem_dofs.shape[2]
+        return max(1, _M_ENTRIES // max(c.tables.n_qp * c.kernel.params.n_equations * n_loc, 1))
+
     def _add_contribution(self, c: _Contribution) -> None:
-        E, n_nodes, n_unk = c.elem_dofs.shape
-        n_loc = n_nodes * n_unk
-        chunk = max(1, _M_ENTRIES // max(c.tables.n_qp * c.kernel.params.n_equations * n_loc, 1))
+        if (
+            self.params.cond_policy == CondensationPolicy.ELEMENT_BOUNDARY
+            and c.block.dim == self.mesh.dim
+            and len(internal_node_indices(c.block.element_type, c.block.order))
+        ):
+            self._add_condensed(c)
+            return
+        E = c.elem_dofs.shape[0]
+        chunk = self._chunk(c)
         pos = None if c.mode == "rhs" else self._scatter_positions(c.elem_dofs)
         for s in range(0, E, chunk):
             sel = slice(s, s + chunk)
@@ -1228,11 +1368,111 @@ class AssembledSystem(_SystemBase):
                 idx = torch.as_tensor(c.elem_dofs[sel].reshape(-1), device=self.device)
                 self.rhs.index_add_(0, idx, F.reshape(-1, self.n_rhs))
 
+    # -- static condensation (``StaticCondensationManager.hpp`` analog) ----------
+
+    def _get_cond_agg(self, c: _Contribution) -> _CondensationAgg:
+        blk = c.block
+        agg = self._cond_aggs.get(id(blk))
+        if agg is None:
+            act = np.nonzero(self.problem.active_mask(c.domain_id))[0]
+            b_nodes = boundary_node_indices(blk.element_type, blk.order)
+            i_nodes = internal_node_indices(blk.element_type, blk.order)
+            E = blk.n_elements
+            nb, ni = len(b_nodes) * len(act), len(i_nodes) * len(act)
+            agg = _CondensationAgg(
+                block=blk, act=act, b_nodes=b_nodes, i_nodes=i_nodes,
+                b_dofs=self.dofmap.node_dof[blk.nodes[:, b_nodes]][:, :, act].reshape(E, nb),
+                Kbi=self._asm_zeros((E, nb, ni)), Kii=self._asm_zeros((E, ni, ni)),
+                Fi=self._asm_zeros((E, ni, self.n_rhs)),
+            )
+            self._cond_aggs[id(blk)] = agg
+        return agg
+
+    def _add_condensed(self, c: _Contribution) -> None:
+        """A contribution on a condensed block, in element chunks: its
+        boundary-boundary block goes to ``data`` and the boundary rhs to
+        ``rhs``; its boundary-interior and interior blocks and the interior
+        rhs add into the block's aggregate (``c.elem_sel`` places a boundary
+        bucket's elements in the block)."""
+        agg = self._get_cond_agg(c)
+        E, n_nodes, _ = c.elem_dofs.shape
+        b_sel, tb, i_sel, ti = _cond_selectors(agg.act, agg.b_nodes, agg.i_nodes, n_nodes, c.dof_inds)
+        dev = self.device
+        b_sel_t, i_sel_t = torch.as_tensor(b_sel, device=dev), torch.as_tensor(i_sel, device=dev)
+        tb_t, ti_t = torch.as_tensor(tb, device=dev), torch.as_tensor(ti, device=dev)
+        rows_all = np.asarray(c.elem_sel if c.elem_sel is not None else np.arange(E), dtype=np.int64)
+        bdofs = c.elem_dofs.reshape(E, -1)[:, b_sel]
+        pos = None if c.mode == "rhs" else self._scatter_positions(bdofs)
+        chunk = self._chunk(c)
+        for s in range(0, E, chunk):
+            sel = slice(s, s + chunk)
+            K, F = self._local_kf(c, sel)
+            rows = torch.as_tensor(rows_all[sel], device=dev)
+            if K is not None:
+                Kb = K[:, b_sel_t]
+                idx = torch.as_tensor(pos[sel].reshape(-1), device=dev)
+                self.data.index_add_(0, idx, Kb[:, :, b_sel_t].reshape(-1))
+                if len(i_sel):
+                    Kbi, Kii = Kb[:, :, i_sel_t], K[:, i_sel_t][:, :, i_sel_t]
+                    agg.Kbi.index_put_((rows[:, None, None], tb_t[None, :, None], ti_t[None, None, :]), Kbi,
+                                       accumulate=True)
+                    agg.Kii.index_put_((rows[:, None, None], ti_t[None, :, None], ti_t[None, None, :]), Kii,
+                                       accumulate=True)
+            if F is not None:
+                idx = torch.as_tensor(bdofs[sel].reshape(-1), device=dev)
+                self.rhs.index_add_(0, idx, F[:, b_sel_t].reshape(-1, self.n_rhs))
+                if len(i_sel):
+                    agg.Fi.index_put_((rows[:, None], ti_t[None, :]), F[:, i_sel_t], accumulate=True)
+
     def _end_impl(self) -> None:
+        """Form each condensed block's Schur complement and add it to the
+        system (``StaticCondensationManager::endAssembly`` analog); ``data``
+        and ``rhs`` are rebound only once every aggregate has succeeded, so a
+        failed end_assembly can be retried without adding Schur terms twice."""
+        data, rhs, yz = self.data, self.rhs, []
+        for agg in self._cond_aggs.values():
+            Y, Z = _schur_solve(agg.Kii, agg.Kbi.transpose(1, 2), agg.Fi)
+            pos = torch.as_tensor(self._scatter_positions(agg.b_dofs).reshape(-1), device=self.device)
+            data = data.index_add(0, pos, torch.bmm(agg.Kbi, Y).reshape(-1), alpha=-1)
+            b_idx = torch.as_tensor(agg.b_dofs.reshape(-1), device=self.device)
+            rhs = rhs.index_add(0, b_idx, torch.bmm(agg.Kbi, Z).reshape(-1, self.n_rhs), alpha=-1)
+            yz.append((agg, Y, Z))
+        self.data, self.rhs = data.to(self.dtype), rhs.to(self.dtype)
+        for agg, Y, Z in yz:
+            agg.Y, agg.Z = Y.to(self.dtype), Z.to(self.dtype)
         self._csr = torch.sparse_csr_tensor(
             self._indptr_dev, self._cols_dev, self.data, size=(self.n_dofs, self.n_dofs),
             check_invariants=False,
         )
+
+    def recover_condensed_solution(self, rhs_index: int = 0):
+        """[(aggregate, interior node ids (E, n_i), values (E, n_i, n_act))]:
+        each condensed block's interior values from the current solution,
+        u_i = Kii^-1 (F_i - Kib u_b)."""
+        out = []
+        for agg in self._cond_aggs.values():
+            if agg.Y is None:
+                continue
+            ub = self.x[torch.as_tensor(agg.b_dofs, device=self.device), rhs_index]  # (E, nb)
+            ui = agg.Z[..., rhs_index] - torch.bmm(agg.Y, ub[:, :, None])[..., 0]
+            vals = ui.reshape(ub.shape[0], len(agg.i_nodes), len(agg.act))
+            out.append((agg, agg.block.nodes[:, agg.i_nodes], vals))
+        return out
+
+    def update_solution(self, dof_inds, solution_manager, slot_inds, rhs_index: int = 0) -> None:
+        """The boundary values as in the base class, then each condensed
+        block's recovered interior values into the same slots."""
+        super().update_solution(dof_inds, solution_manager, slot_inds, rhs_index)
+        if not self._cond_aggs:
+            return
+        new = solution_manager.values.clone()
+        for agg, nodes, vals in self.recover_condensed_solution(rhs_index):
+            idx = torch.as_tensor(nodes.reshape(-1), device=new.device)
+            for di, si in zip(dof_inds, slot_inds):
+                hit = np.nonzero(agg.act == int(di))[0]
+                if len(hit):
+                    new[idx, int(si)] = vals[:, :, int(hit[0])].reshape(-1).to(dtype=new.dtype, device=new.device)
+        solution_manager.values = new
 
     def raw_parts(self, layout: str = "dof"):
         """(fn, (A,)): the unconstrained operator as the CSR product A @ x."""
@@ -1279,5 +1519,5 @@ def make_algebraic_system(
     evaluation strategy.  Runs on the CUDA device unless ``device`` says
     otherwise; without CUDA it raises rather than fall back to the CPU."""
     if params.eval_strategy == OperatorEvaluationStrategy.MATRIX_FREE:
-        return MatrixFreeSystem(mesh, problem, bc_def, params, dtype, device)
+        return MatrixFreeSystem(mesh, problem, bc_def, params, dtype, device)  # raises under condensation
     return AssembledSystem(mesh, problem, bc_def, params, dtype, device)

@@ -33,6 +33,9 @@ __all__ = [
     "side_axis_sign",
     "side_node_indices",
     "side_corner_indices",
+    "side_facet_type",
+    "internal_node_indices",
+    "boundary_node_indices",
     "reference_node_coords",
 ]
 
@@ -91,6 +94,15 @@ def side_axis_sign(et: ElementType, side: int) -> tuple[int, int]:
     return side // 2, (-1 if side % 2 == 0 else 1)
 
 
+def side_facet_type(et: ElementType) -> ElementType | None:
+    """Element type of a facet (one dimension down); None for Line."""
+    if et == ElementType.HEX:
+        return ElementType.QUAD
+    if et == ElementType.QUAD:
+        return ElementType.LINE
+    return None
+
+
 @lru_cache(maxsize=None)
 def side_node_indices(et: ElementType, order: int, side: int) -> np.ndarray:
     """Local node indices on a side, ordered lexicographically in the facet's
@@ -112,6 +124,24 @@ def side_corner_indices(et: ElementType, side: int) -> np.ndarray:
     """Vertex indices (into the element's corner array) lying on a side."""
     side_nodes = side_node_indices(et, 1, side)
     return side_nodes  # at order 1 local node index == vertex index
+
+
+@lru_cache(maxsize=None)
+def internal_node_indices(et: ElementType, order: int) -> np.ndarray:
+    """Local nodes strictly inside the element (never shared between elements);
+    the condensable set of the ElementBoundary policy
+    (``mesh/ElementTraits.hpp:63-141`` internal_node_inds)."""
+    lat = node_lattice(et, order)
+    inside = np.all((lat > 0) & (lat < order), axis=1)
+    return np.nonzero(inside)[0].astype(np.int64)
+
+
+@lru_cache(maxsize=None)
+def boundary_node_indices(et: ElementType, order: int) -> np.ndarray:
+    """Local nodes on the element's boundary (complement of the internal set)."""
+    lat = node_lattice(et, order)
+    inside = np.all((lat > 0) & (lat < order), axis=1)
+    return np.nonzero(~inside)[0].astype(np.int64)
 
 
 @lru_cache(maxsize=None)

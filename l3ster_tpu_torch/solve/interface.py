@@ -14,7 +14,8 @@ class IterSolverOpts:
     ``residual_scaling``: what normalizes the convergence residual —
     "rhs" (norm of b, the default), "initial" (norm of the initial
     residual), or "none" (absolute).  ``verbosity``: 0 silent, 1 prints a
-    summary line per solve.
+    summary line per solve, 2 also one line per iteration (per cycle for
+    GMRES), which waits for the device each time.
 
     ``chunk``: 0 (default) runs the solve as one loop.  ``chunk=k`` runs at
     most k iterations at a time and warm-restarts from the current iterate
@@ -23,13 +24,12 @@ class IterSolverOpts:
     conjugate direction (restarted CG: slightly more iterations), and the
     last chunk may overshoot ``max_iters`` by at most ``chunk - 1``.
     Incompatible with ``residual_scaling="initial"``.  ``restart`` is the
-    GMRES restart length; GMRES is not ported, so nothing reads it: it is
-    kept so that options written for the reference construct unchanged.
+    GMRES cycle length.
     """
 
     tol: float = 1e-10
     max_iters: int = 5000
-    restart: int = 50  # GMRES restart length (read by no solver yet)
+    restart: int = 50  # GMRES cycle length
     verbosity: int = 0
     residual_scaling: str = "rhs"
     chunk: int = 0  # >0: at most this many iterations before a warm restart

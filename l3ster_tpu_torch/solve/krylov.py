@@ -1,12 +1,16 @@
-"""Conjugate gradients (PyTorch port of ``l3ster_tpu.solve.krylov``).
+"""Krylov solvers (PyTorch port of ``l3ster_tpu.solve.krylov``): CG and restarted GMRES.
 
-A plain Python loop over device tensors.  The loop never waits for the
-device inside an iteration: whether to continue is kept on the device as a
-flag that freezes the iterate once every column has converged, and the host
-reads that flag every ``CHECK_EVERY`` iterations.  The iterate, the
-iteration count and the residual are exactly those of the reference's
+Plain Python loops over device tensors.  CG never waits for the device
+inside an iteration: whether to continue is kept on the device as a flag
+that freezes the iterate once every column has converged, and the host reads
+that flag every ``CHECK_EVERY`` iterations.  The iterate, the iteration
+count and the residual are exactly those of the reference's
 ``lax.while_loop`` (at most ``CHECK_EVERY - 1`` frozen iterations run past
-convergence and change nothing).
+convergence and change nothing).  GMRES reads its small Hessenberg column
+back to the host once per Arnoldi step (the Givens rotations, the early-exit
+test and the back substitution run there, in the working dtype), as the
+reference's loop condition reads it on its device.  ``verbosity >= 2``
+prints every iteration's residual, which waits for the device each time.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from .interface import IterSolveResult, IterSolverOpts
 from .precond import Identity
 
-__all__ = ["CHECK_EVERY", "cg_solve", "CG"]
+__all__ = ["CHECK_EVERY", "cg_solve", "gmres_solve", "CG", "Gmres"]
 
 CHECK_EVERY = 10  # iterations between host reads of the convergence flag
 
@@ -166,12 +170,14 @@ def _safe_div(a, d):
     return torch.where(ok, a / torch.where(ok, d, torch.ones_like(d)), torch.zeros_like(a))
 
 
-def cg_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, residual_scaling="rhs"):
+def cg_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, residual_scaling="rhs",
+             verbosity=0):
     """Preconditioned conjugate gradients on an SPD operator; multivector RHS.
 
     Each right-hand-side column iterates with its own step lengths; the loop
     runs while the largest relative residual exceeds ``tol``.  Returns
     (x, n_iters, achieved relative residual) with host int and float.
+    ``verbosity >= 2`` prints each iteration's relative residual.
     """
     b = b[:, None] if b.ndim == 1 else b
     x = torch.zeros_like(b) if x0 is None else x0
@@ -185,7 +191,7 @@ def cg_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, resi
     it = torch.zeros((), dtype=torch.int64, device=b.device)
     done = 0
     while done < max_iters:
-        for _ in range(min(CHECK_EVERY, max_iters - done)):
+        for k in range(min(CHECK_EVERY, max_iters - done)):
             Ap = operator(p)
             alpha = _safe_div(rz, _col_dots(p, Ap)) * active
             x = x + alpha * p
@@ -195,12 +201,104 @@ def cg_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, resi
             p = torch.where(active, z + _safe_div(rz_new, rz) * p, p)
             rz = torch.where(active, rz_new, rz)
             it = it + active
-            active = active & ((_col_dots(r, r).sqrt() / bnorm).max() > tol)
+            res = (_col_dots(r, r).sqrt() / bnorm).max()
+            active = active & (res > tol)
+            if verbosity >= 2 and bool(it > done + k):  # an iteration that ran
+                print(f"CG it {int(it)}: rel res {float(res):.3e}")
         done += min(CHECK_EVERY, max_iters - done)
         if not bool(active):
             break
     res = (_col_dots(r, r).sqrt() / bnorm).max()
     return x, int(it), float(res)
+
+
+_TINY = 1e-30  # GMRES's breakdown threshold
+
+
+def _gmres_div(a, d):
+    """a / d where |d| > 1e-30, else 0 (GMRES's safe division)."""
+    ok = d.abs() > _TINY
+    return torch.where(ok, a / torch.where(ok, d, torch.ones_like(d)), torch.zeros_like(a))
+
+
+def _back_substitute(R: torch.Tensor, g: torch.Tensor, m: int) -> torch.Tensor:
+    """Solve R y = g for upper-triangular R (m, m, n_rhs), g (m, n_rhs); a
+    zero diagonal entry (happy breakdown, or rows past the cycle's last
+    step) gives y = 0 in that row instead of NaN."""
+    y = torch.zeros_like(g)
+    for j in range(m - 1, -1, -1):
+        y[j] = _gmres_div(g[j] - (R[j] * y).sum(dim=0), R[j, j])
+    return y
+
+
+def gmres_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, restart=50,
+                residual_scaling="rhs", verbosity=0):
+    """Restarted GMRES(m): Arnoldi with modified Gram-Schmidt and Givens rotations.
+
+    Analog of the Belos GMRES (``solve/BelosSolvers.hpp:124-127``): each
+    right-hand-side column runs its own Hessenberg system; left
+    preconditioned; an Arnoldi cycle stops early once every column's Givens
+    residual estimate predicts convergence, and convergence is decided on the
+    true (unpreconditioned) relative residual after each cycle.  The Krylov
+    vectors stay on the device; each step's Hessenberg column is read back
+    and rotated on the host in the working dtype.  Returns (x, honest
+    inner-iteration count, achieved relative residual) with host int and
+    float.  ``verbosity >= 2`` prints the residual after each cycle.
+    """
+    b2 = b[:, None] if b.ndim == 1 else b
+    x = torch.zeros_like(b2) if x0 is None else (x0[:, None] if x0.ndim == 1 else x0)
+    M = precond if precond is not None else (lambda r: r)
+    m = int(max(1, min(restart, max_iters)))
+    n_rhs, dt = b2.shape[-1], b2.dtype
+    host = dict(dtype=dt, device="cpu")
+
+    r = b2 - operator(x)
+    bnorm = _residual_scale(b2, r, residual_scaling)
+    bnorm_h = bnorm.cpu()
+    res = ((_col_dots(r, r).sqrt() / bnorm).max()).cpu()
+    it = 0
+    while it < max_iters and bool(res > tol):
+        z = M(b2 - operator(x))
+        beta = _col_dots(z, z).sqrt()
+        V = torch.zeros((m + 1,) + b2.shape, dtype=dt, device=b2.device)
+        V[0] = z * _gmres_div(torch.ones_like(beta), beta)
+        R = torch.zeros((m + 1, m, n_rhs), **host)
+        cs, sn = torch.zeros((m, n_rhs), **host), torch.zeros((m, n_rhs), **host)
+        g = torch.zeros((m + 1, n_rhs), **host)
+        g[0] = beta.cpu()
+        # the preconditioned estimate |g[j]| at the cycle's start stands for the
+        # known true residual; 0.25 absorbs the drift of their ratio in a cycle
+        est0 = (g[0] / bnorm_h).max()
+        inner_tol = 0.25 * tol * _gmres_div(est0, torch.clamp(res, min=_TINY))
+        j = 0
+        while j < m and (j == 0 or bool((g[j].abs() / bnorm_h).max() > inner_tol)):
+            w = M(operator(V[j]))
+            hs = []
+            for i in range(j + 1):
+                hi = _col_dots(V[i], w)
+                hs.append(hi)
+                w = w - V[i] * hi
+            hj1 = _col_dots(w, w).sqrt()
+            V[j + 1] = w * _gmres_div(torch.ones_like(hj1), hj1)
+            h = torch.zeros((m + 1, n_rhs), **host)
+            h[: j + 2] = torch.stack(hs + [hj1]).cpu()
+            for i in range(j):
+                h[i], h[i + 1] = cs[i] * h[i] + sn[i] * h[i + 1], -sn[i] * h[i] + cs[i] * h[i + 1]
+            denom = (h[j] ** 2 + h[j + 1] ** 2).sqrt()
+            cs[j] = torch.where(denom > _TINY, _gmres_div(h[j], denom), torch.ones_like(denom))
+            sn[j] = _gmres_div(h[j + 1], denom)
+            h[j], h[j + 1] = denom, 0.0
+            g[j + 1], g[j] = -sn[j] * g[j], cs[j] * g[j]
+            R[:, j] = h
+            j += 1
+        y = _back_substitute(R[:m], g[:m], m).to(b2.device)
+        x = x + (V[:j] * y[:j, None, :]).sum(dim=0)
+        r = b2 - operator(x)
+        res = ((_col_dots(r, r).sqrt() / bnorm).max()).cpu()
+        it += j
+        if verbosity >= 2:
+            print(f"GMRES it {it}: rel res {float(res):.3e}")
+    return (x[:, 0] if b.ndim == 1 else x), it, float(res)
 
 
 def _finish_iter_solve(system, precond, name: str, o: IterSolverOpts, it: int, res: float):
@@ -253,7 +351,7 @@ class CG:
         x, it, res = _run_chunked(
             lambda x_start: cg_solve(
                 lambda v: fn(v, *consts), b, x0=x_start, precond=lambda r: M_fn(r, *M_consts),
-                tol=o.tol, max_iters=inner, residual_scaling=o.residual_scaling,
+                tol=o.tol, max_iters=inner, residual_scaling=o.residual_scaling, verbosity=o.verbosity,
             ),
             o, x0,
         )
@@ -261,3 +359,36 @@ class CG:
             x = system.from_lattice_layout(x)
         system.set_solution_vector(x)
         return _finish_iter_solve(system, self.precond, "CG", o, it, res)
+
+
+@dataclass
+class Gmres:
+    """User-facing restarted GMRES solver (``solve/BelosSolvers.hpp:124``);
+    ``opts.restart`` is the cycle length.  Layouts, the preconditioner's
+    setup cache and ``opts.chunk`` as in :class:`CG`."""
+
+    opts: IterSolverOpts = field(default_factory=IterSolverOpts)
+    precond: object = field(default_factory=Identity)
+
+    def solve(self, system) -> IterSolveResult:
+        o = self.opts
+        layout = _lattice_solve_layout(system, self.precond)
+        lattice = layout == "lattice"
+        fn, consts = system.operator_parts(layout=layout)
+        M_fn, M_consts = _precond_parts(self.precond, system, layout)
+        b, x0 = system.effective_rhs(), system.solution_vector()
+        if lattice:
+            b, x0 = system.to_lattice_layout(b), system.to_lattice_layout(x0)
+        inner = _chunk_iters(o)
+        x, it, res = _run_chunked(
+            lambda x_start: gmres_solve(
+                lambda v: fn(v, *consts), b, x0=x_start, precond=lambda r: M_fn(r, *M_consts),
+                tol=o.tol, max_iters=inner, restart=o.restart, residual_scaling=o.residual_scaling,
+                verbosity=o.verbosity,
+            ),
+            o, x0,
+        )
+        if lattice:
+            x = system.from_lattice_layout(x)
+        system.set_solution_vector(x)
+        return _finish_iter_solve(system, self.precond, "GMRES", o, it, res)

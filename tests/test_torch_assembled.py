@@ -134,7 +134,9 @@ def test_cg_jacobi_on_assembled_matches_reference(asm_pair):
 
 def test_factory_default_is_assembled():
     """Default parameters build an AssembledSystem on the device asked for;
-    the matrix-free strategy still builds a MatrixFreeSystem."""
+    the matrix-free strategy still builds a MatrixFreeSystem; condensation
+    builds an AssembledSystem and is refused matrix-free (the reference's
+    factory rule)."""
     mesh = lp.generate_mesh(lp.make_cube_mesh(np.linspace(0.0, 1.0, 2)), order=1)
     problem = lp.ProblemDefinition(4, [0])
     s = lp.make_algebraic_system(mesh, problem, device="cpu")
@@ -143,8 +145,12 @@ def test_factory_default_is_assembled():
     mf = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
     assert isinstance(lp.make_algebraic_system(mesh, problem, None, mf, device="cpu"), lp.MatrixFreeSystem)
     cond = lp.AlgebraicSystemParams(cond_policy=lp.CondensationPolicy.ELEMENT_BOUNDARY)
-    with pytest.raises(NotImplementedError, match="A8"):
-        lp.make_algebraic_system(mesh, problem, None, cond, device="cpu")
+    assert isinstance(lp.make_algebraic_system(mesh, problem, None, cond, device="cpu"), lp.AssembledSystem)
+    mf_cond = lp.AlgebraicSystemParams(
+        eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE, cond_policy=lp.CondensationPolicy.ELEMENT_BOUNDARY
+    )
+    with pytest.raises(ValueError, match="static condensation"):
+        lp.make_algebraic_system(mesh, problem, None, mf_cond, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             lp.make_algebraic_system(mesh, problem)

@@ -415,12 +415,13 @@ def _var_diffusion(inp, out):
     ops[1][0, 1] = ops[2][0, 2] = ops[3][0, 3] = -k
 
 
-def _box_system(kernel, device, order=3, n_1d=3, strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE):
+def _box_system(kernel, device, order=3, n_1d=3, strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE,
+                cond=lp.CondensationPolicy.NONE):
     mesh = lp.generate_mesh(lp.make_cube_mesh(np.linspace(0.0, 1.0, n_1d)), order=order)
     problem = lp.ProblemDefinition(4, [0])
     bcs = lp.BCDefinition(problem)
     bcs.define_dirichlet([5, 6], [0])
-    params = lp.AlgebraicSystemParams(eval_strategy=strategy)
+    params = lp.AlgebraicSystemParams(eval_strategy=strategy, cond_policy=cond)
     system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=torch.float64, device=device)
     kdir = lp.wrap_boundary_residual_kernel(lambda i, o: o.__setitem__(0, i.point.x), lp.KernelParams(3, 1))
     system.set_dirichlet_bc_values(kdir, [5, 6], [0])
@@ -619,5 +620,38 @@ def test_pmg_vcycle_cuda_matches_cpu(cuda):
         s = _karman_system(d)
         apply, consts = lp.PMultigrid().setup_parts(s)
         assert all(c.device.type == torch.device(d).type for c in consts if isinstance(c, torch.Tensor))
+        out[d] = apply(r.to(d), *consts).cpu()
+    assert _rel(out[cuda], out["cpu"]) < 1e-11
+
+
+@pytest.mark.cuda
+def test_condensed_system_cuda_matches_cpu(cuda):
+    """An ELEMENT_BOUNDARY-condensed system (p = 3, 2^3 hexes, f64) on the card
+    against the CPU: the Schur-reduced data and effective rhs, and the interiors
+    recovered from one boundary vector, to 1e-11."""
+    G, EB = lp.OperatorEvaluationStrategy.GLOBAL_ASSEMBLY, lp.CondensationPolicy.ELEMENT_BOUNDARY
+    gpu, cpu = (_box_system(_var_diffusion, d, strategy=G, cond=EB) for d in (cuda, "cpu"))
+    assert gpu.n_dofs == cpu.n_dofs < 4 * gpu.mesh.n_nodes
+    assert _rel(gpu.data.cpu(), cpu.data) < 1e-11
+    assert _rel(gpu.effective_rhs().cpu(), cpu.effective_rhs()) < 1e-11
+    x = torch.as_tensor(np.random.default_rng(18).normal(size=(cpu.n_dofs, 1)))
+    gpu.set_solution_vector(x.to(cuda))
+    cpu.set_solution_vector(x)
+    (_, _, vg), = gpu.recover_condensed_solution()
+    (_, _, vc), = cpu.recover_condensed_solution()
+    assert _rel(vg.cpu(), vc) < 1e-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["SGS", "ILU0", "ILUT"])
+def test_triangular_preconditioners_cuda_match_cpu(cuda, name):
+    """The level-scheduled triangular solves on the card: SGS, ILU0 and ILUT
+    applies (f64) of an assembled system against the CPU, to 1e-11."""
+    G = lp.OperatorEvaluationStrategy.GLOBAL_ASSEMBLY
+    r = torch.as_tensor(np.random.default_rng(19).normal(size=(_box_system(_var_diffusion, "cpu", strategy=G).n_dofs, 2)))
+    out = {}
+    for d in (cuda, "cpu"):
+        apply, consts = getattr(lp, name)().setup_parts(_box_system(_var_diffusion, d, strategy=G))
+        assert apply.n_levels > 2
         out[d] = apply(r.to(d), *consts).cpu()
     assert _rel(out[cuda], out["cpu"]) < 1e-11
