@@ -39,7 +39,19 @@ and the unsteady 2D Karman vortex street:
   80,880 dofs): Navier-Stokes in velocity-vorticity-pressure form reading
   the previous velocities as fields, matrix-free (the field-coupled
   ``dense`` kind and ``direct`` boundaries, plain torch: no CUDA kernel of
-  the port lies on this path), Picard then BDF2 with CG + PMultigrid.
+  the port lies on this path), Picard then BDF2 with CG + PMultigrid;
+* the 2D lattice path: the reference's Diffusion2D problem (T, qx, qy; T = x
+  on left/right, adiabatic top/bottom) at p = 6 on 128^2 quads (1,774,083
+  dofs): ``lattice_sf_const``, the non-fused chain, plain and with the
+  per-QP kernel on the lattice layout (``L3STER_TPU_LATTICE_PALLAS_QP=1``),
+  solved with CG + LowOrderMG and CG + Jacobi; and the bench system without
+  the fused z-sweep (``L3STER_TPU_FUSED_Z=0``), plain and with that kernel;
+* periodic conditions and IO: ``examples/advection_periodic.py`` refined to
+  256 x 128 quads at p = 4 (525,312 dofs after aliasing), its final field
+  exported to VTK and checkpointed; a Gmsh 4.1 file of a 64^2 quad square
+  read, promoted to p = 4 and solved; the source identification of
+  ``examples/inverse_diffusion_2d.py`` at 49,923 dofs through the
+  differentiable ``linear_solve``.
 
 Phases, each reported on its own line:
 
@@ -89,7 +101,7 @@ Phases, each reported on its own line:
 7d. ``preconditioners``: each solver of the family on the p = 4 condensed
    system from zero (iterations, setup split into host factorization, level
    analysis and upload, solve s, true residual, triangular solves' levels,
-   ms and launches per apply; CG and GMRES + ILU0 capped at a third of
+   ms and launches per apply; CG and GMRES + ILU0 capped at a twelfth of
    their Jacobi counts and not required to converge: ILU(0) has negative
    pivots here), then the reference's bar as its test runs it; the host
    helper (``csrc/hostops.cpp``) must have built;
@@ -106,7 +118,22 @@ Phases, each reported on its own line:
    and idle share, the true residual beside CG's, the flow rates; one step
    also with CG + Jacobi (PMultigrid must take at most a quarter of its
    iterations), and the first step again in f64 (f32 within
-   KARMAN_F32_TOL of it).
+   KARMAN_F32_TOL of it);
+11. ``bench_nonfused`` (after phase 6): the bench under ``L3STER_TPU_FUSED_Z=0``,
+   plain and with the per-QP kernel, against the fused apply, with z-sweep
+   and per-QP launches counted apart;
+12. ``lattice_2d``: the 2D cell's f32 apply against f64 on the card and a
+   small f64 system against the CPU, apply time, device-busy time, idle
+   share, top kernels; the same system with the per-QP kernel (its
+   launches) against the default; CG + LowOrderMG and CG + Jacobi to 1e-6
+   (MG in fewer iterations), nodal |T - x| and true residuals;
+13. ``periodic``: one period of 40 BDF3 steps in f32 under the example's
+   5% L2 error, s/step and iterations; the example's size in f64 on the
+   card against the CPU; VTK export parsed back and a save/load round trip;
+14. ``gmsh`` (nodal |T - x| < 1e-3) and ``inverse`` (the gradient against
+   central differences, theta recovered by ``torch.optim.LBFGS``).
+   The per-QP kernel's lattice layout is also held against its plain
+   version at the 2D cell's and the bench's shapes in phase 3.
 
 Each kernel's launch count is set to 0 just before the path it is counted
 on and read just after it: the z-sweep's const mode on phases 4-5 and then
@@ -114,7 +141,9 @@ on the bench's multigrid solve, its var mode on the bench-size phase 7 and
 then on the 12^3 multigrid solve (each row sums its two paths), the v1
 wrapper and the stage kernel on their
 phase 6 systems, the per-QP kernel on phases 8-9 (after its comparison
-systems ran), the fused one on the SUM_FACT_PALLAS system.  The
+systems ran), the fused one on the SUM_FACT_PALLAS system; the per-QP
+kernel's lattice layout on phase 11's and phase 12's systems with the
+kernel switched on (one record each).  The
 second-to-last lines are the kernels' JSON record and the nvidia-smi line;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line.  Run: ``python3 chip_smoke.py`` (one card).
@@ -909,20 +938,12 @@ def _build_cylinder(lp, mesh, strategy, dtype, device):
 
 
 def _library_qp(A, G, Ji_t, w):
-    """The per-QP chain on the reference's (d1*c, EQ) layout: J^-T and J^-1 as
-    broadcast multiply-adds over the (dim, dim, EQ) planes, A and A^T as cuBLAS
-    matmuls.  The yardstick for ``library_ms``; the port never calls it."""
-    import torch
-
+    """The per-QP chain on the (E, c, d1, Q) layout: :func:`_library_qp_lattice`
+    on the reference's (d1*c, EQ) layout between two permutes.  The yardstick
+    for ``library_ms``; the port never calls it."""
     E, c, d1, Q = G.shape
-    EQ, n_eq = E * Q, A.shape[1]
-    g = G.permute(2, 1, 0, 3).reshape(d1, c, EQ)
-    J = Ji_t[:, :, None]  # (j, i, 1, EQ)
-    gp = torch.cat([g[:1], (J * g[1:, None]).sum(0)])  # sum_j Ji[j, i] g[j]
-    M = torch.as_tensor(A, dtype=G.dtype, device=G.device).permute(1, 0, 2).reshape(n_eq, d1 * c)
-    r = torch.matmul(M, gp.reshape(d1 * c, EQ)) * w
-    t = torch.matmul(M.T, r).reshape(d1, c, EQ)
-    T = torch.cat([t[:1], (J * t[None, 1:]).sum(1)])  # sum_i Ji[j, i] t[i]
+    g = G.permute(2, 1, 0, 3).reshape(d1 * c, E * Q)
+    T = _library_qp_lattice(A, g, Ji_t.reshape(-1, E * Q), w)
     return T.reshape(d1, c, E, Q).permute(2, 1, 0, 3)
 
 
@@ -1381,6 +1402,10 @@ COND_NODAL_TOL = 1e-3
 COND_CHECK_TOL = 1e-8
 PRE_ORDER, PRE_N1D = 4, 5  # the preconditioners phase: p = 4 on 4^3 hexes, condensed
 JACOBI2_DAMPING = 0.5  # two damped Jacobi sweeps stay SPD (CG-safe) while damping * lambda_max(D^-1 A) < 2
+# CG and GMRES + ILU0 stop at this fraction of their Jacobi runs' iterations:
+# ILU(0) has negative pivots here and converges at no cap (1.2e-2 and
+# 5.8e-3 at a third); a twelfth keeps the script inside its time
+ILU0_CAP = 1 / 12
 
 
 def _rel(got, ref) -> float:
@@ -1626,9 +1651,9 @@ def phase_preconditioners(lp, device: str = "cuda", order: int = PRE_ORDER, n_1d
     the rest (upload), solve seconds, the true residual; for the triangular
     solves their levels, ms per solve and launches per preconditioner apply.
     ILU(0) of this matrix has negative pivots (counted and reported), so M
-    is indefinite: CG + ILU0 and GMRES + ILU0 each get a third of the
-    iterations their solver took with Jacobi (the reference's bar), their
-    outcome reported and not required.  Then
+    is indefinite: CG + ILU0 and GMRES + ILU0 each get ``ILU0_CAP`` of the
+    iterations their solver took with Jacobi, their outcome reported and not
+    required.  Then
     the reference's bar as its
     test runs it (``tests/test_solvers.py:171-211``): CG + Jacobi from zero,
     then BlockJacobi, SGS and ILU0, each from the previous solve's x; ILU0
@@ -1677,9 +1702,9 @@ def phase_preconditioners(lp, device: str = "cuda", order: int = PRE_ORDER, n_1d
             o = opts
             if name == "ILU0":
                 # ILU(0) of this LSFEM matrix has negative pivots (an indefinite
-                # M): each solver gets a third of its Jacobi run's iterations,
-                # the reference's bar, and the outcome is reported, not required
-                o = lp.IterSolverOpts(tol=CG_TOL, max_iters=jacobi_its[solver_name] // 3)
+                # M): each solver gets ILU0_CAP of its Jacobi run's iterations,
+                # and the outcome is reported, not required
+                o = lp.IterSolverOpts(tol=CG_TOL, max_iters=int(jacobi_its[solver_name] * ILU0_CAP))
             solver = (lp.CG if solver_name == "CG" else lp.Gmres)(o, precond=pc)
             r, setup_s, solve_s = _solve_from_zero(system, solver, device)
             rec = dict(solver=solver_name, precond=name, max_iters=o.max_iters, iterations=r.num_iters,
@@ -1712,7 +1737,7 @@ def phase_preconditioners(lp, device: str = "cuda", order: int = PRE_ORDER, n_1d
     its = {(o["solver"], o["precond"]): o["iterations"] for o in out}
     jac = its[("CG", "Jacobi")]
     ilu0 = next(o for o in out if (o["solver"], o["precond"]) == ("CG", "ILU0"))
-    from_zero = dict(ilu0_converged_within_a_third=ilu0["converged"], sgs_ratio=its[("CG", "SGS")] / jac,
+    from_zero = dict(ilu0_converged_within_cap=ilu0["converged"], sgs_ratio=its[("CG", "SGS")] / jac,
                      blockjacobi_ratio=its[("CG", "BlockJacobi")] / jac)
     pivots = _ilu0_negative_pivots(system)
     # the reference's bar as its test runs it (tests/test_solvers.py:171-211):
@@ -1843,6 +1868,607 @@ def phase_mg_solve(lp, state: dict, jacobi_iters: int, phase: str, precond=None)
     if not ok:
         raise SystemExit(f"chip_smoke: CG + LowOrderMG failed its checks ({phase})")
     return path_launches
+
+
+# ------------------------------------------------------------ the 2D lattice path, periodic, IO, adjoint
+
+L2D_N, L2D_ORDER = 129, 6  # the 2D lattice cell: p = 6 on 128^2 quads (1,774,083 dofs)
+NONFUSED_TOL = 1e-4  # f32: the non-fused chain or its per-QP kernel vs the default apply
+PER_NX, PER_NY, PER_ORDER = 257, 129, 4  # the periodic cell: 256 x 128 quads at p = 4
+PER_DT, PER_STEPS, PER_ERR_PCT = 0.025, 40, 5.0  # one period; the example's 5% bound
+# each step's CG + Jacobi stop (f32): a 1e-6 stop leaves 11.08% at this size on
+# the H100 (4.85% at 64 x 32 quads on the CPU, in f32 and f64 alike); the
+# solves' error, not f32, grows with the refinement, and 1e-8 holds 2.65%
+PER_CG_TOL = 1e-8
+PER_F64_TOL = 1e-10  # the example's size in f64: the card vs the CPU after the period
+GMSH_N, GMSH_ORDER, GMSH_NODAL_TOL = 64, 4, 1e-3
+INV_N, INV_ORDER = 33, 4  # the inverse problem: 32^2 quads at p = 4 (49,923 dofs), f64
+INV_THETA = (1.5, -0.7, 0.9)
+INV_CENTERS = ((0.25, 0.3), (0.6, 0.7), (0.8, 0.2))
+INV_GRAD_TOL, INV_THETA_TOL = 1e-6, 1e-3
+INV_CG_TOL = 1e-10  # each solve's stop (the example's 1e-12): the gradient check needs far less
+
+
+def _diffusion_2d(inp, out):
+    """The reference's Diffusion2D operator (T, qx, qy; 4 equations)."""
+    ops, _ = out
+    A0, Ax, Ay = ops
+    Ax[0, 1] = -1.0
+    Ay[0, 2] = -1.0
+    A0[1, 1] = -1.0
+    Ax[1, 0] = 1.0
+    A0[2, 2] = -1.0
+    Ay[2, 0] = 1.0
+    Ax[3, 2] = 1.0
+    Ay[3, 1] = -1.0
+
+
+def _adiabatic_2d(inp, out):
+    ops, _ = out
+    ops[0][0, 1] = inp.normal[0]
+    ops[0][0, 2] = inp.normal[1]
+
+
+def _build_2d(lp, mesh, dtype, device, domain: int = 0):
+    """Diffusion2D on a square mesh: T = x on left/right (3, 4), adiabatic
+    top/bottom (1, 2), matrix-free, AUTO."""
+    problem = lp.ProblemDefinition(3, [domain])
+    bcs = lp.BCDefinition(problem)
+    bcs.define_dirichlet([3, 4], [0])
+    params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
+    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
+    system.set_dirichlet_bc_values(lp.wrap_boundary_residual_kernel(_t_equals_x, lp.KernelParams(2, 1)), [3, 4], [0])
+    system.begin_assembly()
+    system.assemble_problem(lp.wrap_domain_equation_kernel(_diffusion_2d, lp.KernelParams(2, 4, 3)), [domain])
+    system.assemble_problem(lp.wrap_boundary_equation_kernel(_adiabatic_2d, lp.KernelParams(2, 1, 3)), [1, 2])
+    system.end_assembly()
+    return system
+
+
+def _square(lp, n: int, order: int):
+    return lp.generate_mesh(lp.make_square_mesh(np.linspace(0.0, 1.0, n)), order=order)
+
+
+def _library_qp_lattice(A, g, ji, w):
+    """The per-QP chain on the lattice layout (d1*c, EQ): J^-T and J^-1 as
+    broadcast multiply-adds over the (dim, dim, EQ) planes, A and A^T as
+    cuBLAS matmuls; the yardstick for ``library_ms``, never called by the
+    port."""
+    import torch
+
+    d1, n_eq, c = A.shape
+    dim, EQ = d1 - 1, g.shape[1]
+    g3 = g.reshape(d1, c, EQ)
+    J = ji.reshape(dim, dim, 1, EQ)
+    gp = torch.cat([g3[:1], (J * g3[1:, None]).sum(0)])
+    M = torch.as_tensor(A, dtype=g.dtype, device=g.device).permute(1, 0, 2).reshape(n_eq, d1 * c)
+    r = torch.matmul(M, gp.reshape(d1 * c, EQ)) * w
+    t = torch.matmul(M.T, r).reshape(d1, c, EQ)
+    return torch.cat([t[:1], (J * t[None, 1:]).sum(1)]).reshape(d1 * c, EQ)
+
+
+def phase_kernels_qp_lattice(lp, device: str = "cuda") -> dict:
+    """The per-QP kernel (B2) on the lattice chain's (d1*c, EQ) layout against
+    its plain version at the two lattice shapes (f64 and f32): the 2D cell
+    (Diffusion2D's A, c = 3, n_eq = 4, p = 6 on 128^2 quads at QO 22) and the
+    bench under ``L3STER_TPU_FUSED_Z=0`` (c = 4, n_eq = 7); kernel, plain and
+    library ms and the byte bound.  Returns {cell: record}."""
+    import torch
+
+    from l3ster_tpu_torch.algsys.system import _constant_kernel_operators
+    from l3ster_tpu_torch.ops.qp import qp_algebra_const_lattice, qp_algebra_const_lattice_plain
+
+    q2 = lp.AssemblyOptions().quadrature_order(L2D_ORDER) // 2 + 1
+    cases = {
+        "2d": (_diffusion_2d, 2, 4, 3, (L2D_N - 1) ** 2 * q2**2),
+        "bench": (_diffusion_3d, 3, 7, 4, 6**3 * q2**3),
+    }
+    records = {}
+    for cell, (kern, dim, n_eq, c, EQ) in cases.items():
+        A = _constant_kernel_operators(lp.wrap_domain_equation_kernel(kern, lp.KernelParams(dim, n_eq, c)), 0.0)
+        d1 = dim + 1
+        rng = np.random.default_rng(40 + dim)
+        host = (
+            rng.normal(size=(d1 * c, EQ)),
+            rng.normal(size=(dim * dim, EQ)) * 0.1 + np.eye(dim).reshape(-1, 1),
+            rng.uniform(0.5, 1.0, EQ),
+        )
+        d64 = tuple(torch.as_tensor(h, device=device) for h in host)
+        ref = qp_algebra_const_lattice_plain(A, *d64)
+        err64 = _errs(qp_algebra_const_lattice(A, *d64), ref)[1]
+        d32 = tuple(t.float() for t in d64)
+        abs32, err32 = _errs(qp_algebra_const_lattice(A, *d32), ref)
+        _, lib_err = _errs(_library_qp_lattice(A, *d32), ref)
+        _sync(device)
+        del d64, ref
+        ms, plain_ms, library_ms = (
+            _cuda_ms(f, queued=True)
+            for f in (
+                lambda: qp_algebra_const_lattice(A, *d32),
+                lambda: qp_algebra_const_lattice_plain(A, *d32),
+                lambda: _library_qp_lattice(A, *d32),
+            )
+        )
+        nbytes = 4 * (2 * d32[0].numel() + d32[1].numel() + d32[2].numel())
+        bound_ms, bound_by = _bound(nbytes, _qp_flops(EQ, dim, c, int((A != 0).sum()), n_eq))
+        ok = err64 < F64_KERNEL_TOL and err32 < F32_KERNEL_TOL
+        _say(
+            "kernel_vs_plain", kernel="qp_algebra", layout="lattice (d1*c, EQ)", cell=cell, shape=[d1 * c, EQ],
+            c=c, n_eq=n_eq, f64_rel_err=err64, f64_tol=F64_KERNEL_TOL, f32_rel_err=err32, f32_abs_err=abs32,
+            f32_tol=F32_KERNEL_TOL, library_rel_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms, ok=ok,
+        )
+        if not ok:
+            raise SystemExit(f"chip_smoke: the per-QP kernel's lattice layout disagrees with its plain version: {cell}")
+        records[cell] = dict(
+            name=f"qp_algebra_lattice_{cell}", route="cuda", source="l3ster_tpu_torch/csrc/qp_algebra.cu",
+            replaces="l3ster_tpu/ops/pallas_qp.py:94", launches=None, max_abs_err=abs32, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        )
+        del d32
+    return records
+
+
+def _apply_with_env(lp, build, env: dict, x):
+    """Build a system with the environment switches ``env`` set (unset after),
+    take its lattice-layout operator and apply it once to x."""
+    import os
+
+    os.environ.update(env)
+    try:
+        system = build()
+        fn, consts = system.operator_parts(layout="lattice")
+    finally:
+        for k in env:
+            del os.environ[k]
+    return system, fn, consts, fn(x, *consts)
+
+
+def phase_bench_nonfused(lp, state: dict, device: str = "cuda", order: int = 6, n_1d: int = 7) -> int:
+    """The bench system (f32) without the fused z-sweep
+    (``L3STER_TPU_FUSED_Z=0``): the non-fused chain, plain and with the
+    per-QP kernel (``L3STER_TPU_LATTICE_PALLAS_QP=1``), each against the
+    default fused apply, with its time, device-busy time and its z-sweep
+    (B1) and per-QP (B2) launches counted apart.  Returns B2's launches."""
+    import torch
+
+    from l3ster_tpu_torch.ops import qp, zsweep
+
+    xl, y_default = state["xl"], state["y32"]
+    qp_launches = 0
+    for env, variant in (({"L3STER_TPU_FUSED_Z": "0"}, "chain"),
+                         ({"L3STER_TPU_FUSED_Z": "0", "L3STER_TPU_LATTICE_PALLAS_QP": "1"}, "chain_qp")):
+        zsweep.launch_count = qp.launch_count = 0  # this system's path starts here
+        system, fn, consts, y = _apply_with_env(
+            lp, lambda: _build_system(lp, order, n_1d, torch.float32, device)[1], env, xl
+        )
+        _sync(device)
+        kinds = [d[0] for _, d in system._operators()[1]]
+        err = float((y - y_default).abs().max() / y_default.abs().max())
+        ms = _cuda_ms(lambda: fn(xl, *consts))
+        busy_ms, top = _profile_apply(lambda v: fn(v, *consts), xl)
+        counts = dict(zsweep=zsweep.launch_count, qp_algebra=qp.launch_count)
+        ok = (
+            kinds == ["lattice_sf_const"] + ["face_banded"] * 4 and system._variant == variant
+            and bool(torch.isfinite(y).all()) and err < NONFUSED_TOL and counts["zsweep"] == 0
+            and (counts["qp_algebra"] > 0) == (variant == "chain_qp" and device != "cpu")
+        )
+        _say(
+            "bench_nonfused", env=env, kinds=kinds, variant=system._variant, rel_err_vs_fused_apply=err,
+            tol=NONFUSED_TOL, apply_ms=ms, fused_apply_ms=state["apply_ms"], device_busy_ms=busy_ms,
+            device_idle_share=1.0 - busy_ms / ms, top_device_ms_per_apply=top, launches=counts, ok=ok,
+        )
+        if not ok:
+            raise SystemExit(f"chip_smoke: the non-fused bench apply ({variant}) failed its checks")
+        if variant == "chain_qp":
+            qp_launches = counts["qp_algebra"]
+        del system, fn, consts, y
+    return qp_launches
+
+
+def _nodal_T_err(system, mesh) -> float:
+    X = system.x[:, 0].reshape(-1, 3).double().cpu().numpy()
+    return float(np.abs(X[:, 0] - mesh.node_coords[:, 0]).max())
+
+
+def phase_lattice_2d(lp, device: str = "cuda", n: int = L2D_N, order: int = L2D_ORDER,
+                     small=(5, 3)) -> int:
+    """The reference's Diffusion2D problem on ``make_square_mesh`` at p = 6 on
+    128^2 quads, f32, AUTO (``lattice_sf_const``, the non-fused chain, with
+    ``direct`` faces): the f32 apply against the f64 one on the card, a small
+    f64 system on the card against the CPU path, apply time, device-busy
+    time, idle share and the costliest kernels; the same system under
+    ``L3STER_TPU_LATTICE_PALLAS_QP=1`` (the per-QP kernel on the lattice
+    layout) against the default, its time and launches (the count set to 0
+    just before it is built); then CG + LowOrderMG and CG + Jacobi to 1e-6
+    with nodal |T - x| and true residuals.  Returns the per-QP launches."""
+    import torch
+
+    from l3ster_tpu_torch.ops import qp
+
+    cpu = torch.device(device).type == "cpu"
+    sm = _square(lp, *small)
+    sg, sc = _build_2d(lp, sm, torch.float64, device), _build_2d(lp, sm, torch.float64, "cpu")
+    xs = torch.as_tensor(np.random.default_rng(21).normal(size=(sc.n_dofs, 1)))
+    ys = sc.operator()(xs)
+    small_err = float((sg.operator()(xs.to(device)).cpu() - ys).abs().max() / ys.abs().max())
+    del sg, sc
+    t0 = time.perf_counter()
+    mesh = _square(lp, n, order)
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s64 = _build_2d(lp, mesh, torch.float64, device)
+    x64 = torch.as_tensor(np.random.default_rng(22).normal(size=(s64.n_dofs, 1)), device=device)
+    f64, c64 = s64.operator_parts(layout="lattice")
+    y64 = f64(s64.to_lattice_layout(x64), *c64)
+    _sync(device)
+    setup64_s = time.perf_counter() - t0
+    del s64, f64, c64
+    t0 = time.perf_counter()
+    system = _build_2d(lp, mesh, torch.float32, device)
+    kinds = [d[0] for _, d in system._operators()[1]]
+    fn, consts = system.operator_parts(layout="lattice")
+    xl = system.to_lattice_layout(x64.float())
+    y32 = fn(xl, *consts)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    err = float((y32.double() - y64).abs().max() / y64.abs().max())
+    del y64, x64
+    ms = _cuda_ms(lambda: fn(xl, *consts))
+    busy_ms, top = _profile_apply(lambda v: fn(v, *consts), xl)
+    q1 = lp.AssemblyOptions().quadrature_order(order) // 2 + 1
+    ok = (
+        kinds == ["lattice_sf_const", "direct", "direct"] and system._variant == "chain"
+        and system.lattice_layout_key() is not None and bool(torch.isfinite(y32).all())
+        and err < F32_APPLY_TOL and small_err < F64_APPLY_TOL
+    )
+    _say(
+        "lattice_2d_apply", order=order, n_elements=(n - 1) ** 2, n_nodes=mesh.n_nodes, n_dofs=system.n_dofs,
+        n_qp=(n - 1) ** 2 * q1 * q1, kinds=kinds, variant=system._variant, dtype="float32", mesh_s=mesh_s,
+        setup_s=setup_s, f64_setup_s=setup64_s, rel_err_vs_f64_on_card=err, tol=F32_APPLY_TOL,
+        small_f64_rel_err_vs_cpu=small_err, small_tol=F64_APPLY_TOL, apply_ms=ms, device_busy_ms=busy_ms,
+        device_idle_share=1.0 - busy_ms / ms, top_device_ms_per_apply=top, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the 2D lattice apply failed its checks")
+
+    qp.launch_count = 0  # the per-QP kernel's 2D lattice path starts here
+    sq, fq, cq, yq = _apply_with_env(
+        lp, lambda: _build_2d(lp, mesh, torch.float32, device), {"L3STER_TPU_LATTICE_PALLAS_QP": "1"}, xl
+    )
+    _sync(device)
+    qerr = float((yq - y32).abs().max() / y32.abs().max())
+    qms = _cuda_ms(lambda: fq(xl, *cq))
+    qbusy, qtop = _profile_apply(lambda v: fq(v, *cq), xl)
+    launches = qp.launch_count
+    ok = sq._variant == "chain_qp" and qerr < NONFUSED_TOL and (cpu or launches > 0)
+    _say(
+        "lattice_2d_apply_qp_kernel", env="L3STER_TPU_LATTICE_PALLAS_QP=1", variant=sq._variant,
+        rel_err_vs_default_apply=qerr, tol=NONFUSED_TOL, apply_ms=qms, default_apply_ms=ms,
+        device_busy_ms=qbusy, device_idle_share=1.0 - qbusy / qms, top_device_ms_per_apply=qtop,
+        qp_launches=launches, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the 2D lattice apply with the per-QP kernel failed its checks")
+    del sq, fq, cq, yq, y32, xl
+    if not cpu:
+        torch.cuda.empty_cache()
+
+    res = {}
+    for name, precond in (("LowOrderMG", lp.LowOrderMG()), ("Jacobi", lp.Jacobi())):
+        system.set_solution_vector(torch.zeros_like(system.x))
+        _sync(device)
+        t0 = time.perf_counter()
+        r = system.solve(lp.CG(lp.IterSolverOpts(tol=CG_TOL, max_iters=CG_MAX_ITERS), precond=precond))
+        _sync(device)
+        res[name] = dict(
+            iterations=r.num_iters, converged=r.converged, solve_s=time.perf_counter() - t0,
+            achieved_rel_residual=r.tol, true_rel_residual=_true_residual(system),
+            max_nodal_err_T_minus_x=_nodal_T_err(system, mesh),
+        )
+    mg, jac = res["LowOrderMG"], res["Jacobi"]
+    ok = mg["converged"] and jac["converged"] and mg["iterations"] < jac["iterations"]
+    _say(
+        "lattice_2d_solve", dtype="float32", tol=CG_TOL, n_dofs=system.n_dofs,
+        **{f"cg_{k}": v for k, v in res.items()}, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the 2D lattice solves failed their checks")
+    return launches
+
+
+def _advection_periodic(lp, nx, ny, order, dtype, device, tol, n_steps=PER_STEPS):
+    """``examples/advection_periodic.py``: a Gaussian pulse advected across
+    the periodic x-direction of [-0.5, 0.5] x [0, 0.5] with BDF3, DT 0.025,
+    matrix-free, CG + Jacobi to ``tol``.  Returns (system, manager, newest
+    slot, normalized L2 error in %, per-step seconds and iterations)."""
+    import torch
+
+    NX, NY = np.linspace(-0.5, 0.5, nx), np.linspace(0.0, 0.5, ny)
+    W, H = NX[-1] - NX[0], NY[-1] - NY[0]
+    from l3ster_tpu_torch.models.kernels import advection_bdf_2d
+
+    def analytic(inp, out):
+        x_dv = (inp.point.x - inp.point.time - NX[0]) % W + NX[0]
+        out[0] = torch.exp(-10.0 * x_dv * x_dv)
+
+    mesh = lp.generate_mesh(lp.make_square_mesh(NX, NY), order=order)
+    problem = lp.ProblemDefinition(1, [0])
+    bcs = lp.BCDefinition(problem)
+    bcs.define_periodic([3], [4], [W, 0.0, 0.0])
+    bcs.define_dirichlet([1, 2])
+    params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
+    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
+    init_k = advection_bdf_2d((1.0, 0.0), PER_DT, 11.0 / 6.0, (3.0, -1.5, 1.0 / 3.0))
+    eval_k = advection_bdf_2d((1.0, 0.0), PER_DT, 11.0 / 6.0, ())
+    sol_k = lp.wrap_domain_residual_kernel(analytic, lp.KernelParams(dimension=2, n_equations=1))
+    sol_bc = lp.wrap_boundary_residual_kernel(analytic, lp.KernelParams(dimension=2, n_equations=1))
+    hist = [0, 1, 2]
+    manager = lp.SolutionManager(mesh, 3, device=device)
+    for i in hist:
+        manager.set_fields_from_kernel(sol_k, [0], [i], time=-PER_DT * i)
+        manager.set_fields_from_kernel(sol_bc, [1, 2, 3, 4], [i], time=-PER_DT * i)
+    solver = lp.CG(lp.IterSolverOpts(tol=tol, max_iters=CG_MAX_ITERS), precond=lp.Jacobi())
+    steps = []
+    for step in range(1, n_steps + 1):
+        _sync(device)
+        t0 = time.perf_counter()
+        system.set_dirichlet_bc_values(sol_bc, [1, 2], [0], time=step * PER_DT)
+        system.begin_assembly()
+        system.init_problem(init_k, [0], manager.field_access(hist))
+        system.define_operator(eval_k, [0])
+        system.end_assembly()
+        r = system.solve(solver)
+        system.update_solution([0], manager, [hist[-1]])
+        hist = [hist[-1]] + hist[:-1]
+        _sync(device)
+        if not r.converged:
+            raise SystemExit(f"chip_smoke: periodic advection step {step} did not converge")
+        steps.append((time.perf_counter() - t0, r.num_iters))
+
+    def err_kernel(inp, out):
+        analytic(inp, out)
+        out[0] = inp.field_vals[0] - out[0]
+
+    ek = lp.wrap_domain_residual_kernel(err_kernel, lp.KernelParams(dimension=2, n_equations=1, n_fields=1))
+    e = float(lp.compute_norm_l2(ek, mesh, [0], manager.field_access([hist[0]]), time=n_steps * PER_DT)[0, 0])
+    return system, manager, hist[0], e / (W * H) * 100.0, steps
+
+
+def phase_periodic(lp, device: str = "cuda", nx: int = PER_NX, ny: int = PER_NY, out_dir: str = "results") -> None:
+    """The periodic advection example refined to 256 x 128 quads at p = 4
+    (525,825 nodes, 525,312 dofs after aliasing), f32, one period of 40 BDF3
+    steps with CG + Jacobi to ``PER_CG_TOL``: under the example's 5% normalized L2
+    error, s/step and iterations; the example's own size (8 x 4 quads) in
+    f64 on the card against the CPU path after the period (CG to 1e-13);
+    then the final field exported with ``PvtuExporter`` (parsed back: 16
+    subcells a p = 4 quad) and saved and loaded with ``save``/``load``
+    (equal to the saved field)."""
+    import os
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    import torch
+
+    t0 = time.perf_counter()
+    system, man, slot, err_pct, steps = _advection_periodic(lp, nx, ny, PER_ORDER, torch.float32, device, PER_CG_TOL)
+    total_s = time.perf_counter() - t0
+    kinds = [d[0] for _, d in system._operators()[1]]
+    step_s = [s for s, _ in steps]
+    iters = [i for _, i in steps]
+    small = {}
+    for dev in (device, "cpu"):
+        _, m, sl, e, _ = _advection_periodic(lp, 9, 5, PER_ORDER, torch.float64, dev, 1e-13)
+        small[dev] = (m.values[:, sl].cpu(), e)
+    f64_diff = float((small[device][0] - small["cpu"][0]).abs().max())
+
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        t1 = time.perf_counter()
+        d = lp.ExportDefinition(os.path.join(tmp, "advection.pvtu")).define_field("u", [slot])
+        lp.PvtuExporter(man.mesh).export_solution(d, man)
+        export_s = time.perf_counter() - t1
+        piece = next(ET.parse(os.path.join(tmp, "advection.vtu")).getroot().iter("Piece"))
+        n_cells, n_points = int(piece.get("NumberOfCells")), int(piece.get("NumberOfPoints"))
+        ET.parse(d.path)
+        path = lp.save(os.path.join(tmp, "advection"), man.mesh, man, field_names=["u0", "u1", "u2"])
+        mesh2, man2 = lp.load(path, device=device)
+        same = bool(torch.equal(man2.values, man.values)) and mesh2.n_nodes == man.mesh.n_nodes
+        ckpt_bytes = os.path.getsize(path)
+    n_quads = (nx - 1) * (ny - 1)
+    ok = bool(
+        err_pct < PER_ERR_PCT and f64_diff < PER_F64_TOL and n_cells == 16 * n_quads
+        and n_points == man.mesh.n_nodes and same
+    )
+    _say(
+        "periodic", n_quads=n_quads, order=PER_ORDER, n_nodes=int(man.mesh.n_nodes), n_dofs=system.n_dofs,
+        kinds=kinds, dtype="float32", dt=PER_DT, steps=len(steps), cg_tol=PER_CG_TOL, l2_err_pct=err_pct,
+        err_bound_pct=PER_ERR_PCT,
+        total_s=total_s, s_per_step_median=statistics.median(step_s), s_per_step_max=max(step_s),
+        iterations_median=statistics.median(iters), iterations_max=max(iters),
+        small_f64_card_vs_cpu_max_abs=f64_diff, small_tol=PER_F64_TOL,
+        small_l2_err_pct=[small[device][1], small["cpu"][1]], vtu_cells=n_cells, vtu_points=n_points,
+        export_s=export_s, checkpoint_bytes=ckpt_bytes, checkpoint_round_trip_equal=same, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the periodic advection phase failed its checks")
+
+
+def _write_gmsh_v4_square(path: str, n: int) -> None:
+    """A Gmsh 4.1 ASCII file of an n x n quad square on [0, 1]^2: physical
+    curves 1-4 (bottom, top, left, right) and the physical surface 10."""
+    N = n + 1
+    xs = np.linspace(0.0, 1.0, N)
+    X, Y = np.meshgrid(xs, xs, indexing="xy")
+    tag = lambda i, j: j * N + i + 1  # noqa: E731
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="xy")
+    quads = np.stack([tag(i, j), tag(i + 1, j), tag(i + 1, j + 1), tag(i, j + 1)], -1).reshape(-1, 4)
+    k = np.arange(n)
+    curves = {  # curve tag: its segments
+        1: np.stack([tag(k, 0), tag(k + 1, 0)], 1),
+        2: np.stack([tag(k, n), tag(k + 1, n)], 1),
+        3: np.stack([tag(0, k), tag(0, k + 1)], 1),
+        4: np.stack([tag(n, k), tag(n, k + 1)], 1),
+    }
+    lines = ["$MeshFormat", "4.1 0 8", "$EndMeshFormat", "$Entities", "0 4 1 0",
+             "1 0 0 0 1 0 0 1 1 0", "2 0 1 0 1 1 0 1 2 0", "3 0 0 0 0 1 0 1 3 0", "4 1 0 0 1 1 0 1 4 0",
+             "1 0 0 0 1 1 0 1 10 4 1 2 3 4", "$EndEntities", "$Nodes", f"1 {N * N} 1 {N * N}", f"2 1 0 {N * N}"]
+    lines += [str(t) for t in range(1, N * N + 1)]
+    lines += [f"{float(x)!r} {float(y)!r} 0" for x, y in zip(X.reshape(-1), Y.reshape(-1))]
+    n_el = len(quads) + 4 * n
+    lines += ["$EndNodes", "$Elements", f"5 {n_el} 1 {n_el}"]
+    e = 1
+    for c, segs in curves.items():
+        lines.append(f"1 {c} 1 {len(segs)}")
+        for s in segs:
+            lines.append(f"{e} {s[0]} {s[1]}")
+            e += 1
+    lines.append(f"2 1 3 {len(quads)}")
+    for q in quads:
+        lines.append(f"{e} {q[0]} {q[1]} {q[2]} {q[3]}")
+        e += 1
+    lines.append("$EndElements")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def phase_gmsh(lp, device: str = "cuda", n: int = GMSH_N, out_dir: str = "results") -> None:
+    """A Gmsh 4.1 ASCII file of a 64^2 quad square with physical boundary
+    groups, read with ``read_gmsh``, promoted to p = 4, and the Diffusion2D
+    T = x problem solved on it in f32 (CG + Jacobi to 1e-6): nodal
+    |T - x| < 1e-3."""
+    import os
+    import tempfile
+
+    import torch
+
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        path = os.path.join(tmp, "square.msh")
+        _write_gmsh_v4_square(path, n)
+        t0 = time.perf_counter()
+        base = lp.read_gmsh(path, boundary_ids=[1, 2, 3, 4])
+        read_s = time.perf_counter() - t0
+    mesh = lp.generate_mesh(base, order=GMSH_ORDER)
+    system = _build_2d(lp, mesh, torch.float32, device, domain=10)
+    kinds = [d[0] for _, d in system._operators()[1]]
+    _sync(device)
+    t0 = time.perf_counter()
+    r = system.solve(lp.CG(lp.IterSolverOpts(tol=CG_TOL, max_iters=CG_MAX_ITERS), precond=lp.Jacobi()))
+    _sync(device)
+    solve_s = time.perf_counter() - t0
+    err = _nodal_T_err(system, mesh)
+    ok = bool(r.converged and err < GMSH_NODAL_TOL and base.domains[10][0].n_elements == n * n)
+    _say(
+        "gmsh", format="MSH 4.1 ASCII", n_quads=n * n, order=GMSH_ORDER, n_dofs=system.n_dofs, kinds=kinds,
+        read_s=read_s, iterations=r.num_iters, converged=r.converged, solve_s=solve_s,
+        true_rel_residual=_true_residual(system), max_nodal_err_T_minus_x=err, tol=GMSH_NODAL_TOL, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the Gmsh phase failed its checks")
+
+
+def phase_inverse(lp, device: str = "cuda", n: int = INV_N, order: int = INV_ORDER) -> None:
+    """``examples/inverse_diffusion_2d.py``'s source identification on 32^2
+    quads at p = 4, f64: T = 0 on left/right, adiabatic top/bottom, the
+    source a combination of three Gaussian bumps; observe T, recover theta.
+    Each T(theta) is ``linear_solve`` on the assembled system's
+    ``operator_parts()`` (CG + Jacobi to ``INV_CG_TOL``, each forward solve
+    from the last one's solution: x0 changes the path, not the answer); the
+    gradient at theta = 0 against central differences (the loss is quadratic
+    in theta, so they are exact up to the solves' rounding), then
+    ``torch.optim.LBFGS`` from zero.  The system is assembled where the
+    example's is matrix-free: on the card the matrix-free 2D chain's solves
+    are host-bound (CG + LowOrderMG to 1e-10, 8.9 s a solve on the H100),
+    and the phase took 220 s so."""
+    import torch
+
+    mesh = _square(lp, n, order)
+    problem = lp.ProblemDefinition(3, [0])
+    bcs = lp.BCDefinition(problem)
+    bcs.define_dirichlet([3, 4], [0])
+    params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.GLOBAL_ASSEMBLY)
+    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=torch.float64, device=device)
+    system.set_dirichlet_bc_values(0.0, [3, 4], [0])
+
+    def source_kernel(cx, cy):
+        def kern(inp, out):
+            _diffusion_2d(inp, out)
+            _, rhs = out
+            rhs[0] = -torch.exp(-40.0 * ((inp.point.x - cx) ** 2 + (inp.point.y - cy) ** 2))
+
+        return lp.wrap_domain_equation_kernel(kern, lp.KernelParams(2, 4, 3))
+
+    basis = []
+    t0 = time.perf_counter()
+    for cx, cy in INV_CENTERS:
+        system.begin_assembly()
+        system.assemble_problem(source_kernel(cx, cy), [0])
+        system.assemble_problem(lp.wrap_boundary_equation_kernel(_adiabatic_2d, lp.KernelParams(2, 1, 3)), [1, 2])
+        system.end_assembly()
+        basis.append(system.effective_rhs())
+    _sync(device)
+    build_s = time.perf_counter() - t0  # three assemblies
+    B = torch.stack(basis)  # (3, n_dofs, 1)
+    fn, consts = system.operator_parts()
+    M_fn, M_consts = lp.Jacobi().setup_parts(system)
+    t_dofs = torch.arange(system.n_dofs // 3, device=device) * 3  # T: unknown 0 of each node
+    solves = [0]
+    last = {}  # the last forward solution: the next forward solve starts from it
+
+    def forward(theta, x0=None):
+        solves[0] += 1
+        b = torch.tensordot(theta, B, dims=1)
+        x0 = last.get("u") if x0 is None else x0
+        u = lp.linear_solve(
+            fn, consts, b, x0=x0, precond=M_fn, precond_consts=M_consts, tol=INV_CG_TOL, max_iters=20000
+        )
+        last["u"] = u.detach()
+        return u[t_dofs, 0]
+
+    t_obs = forward(torch.tensor(INV_THETA, dtype=torch.float64, device=device)).detach()
+
+    def loss(theta, x0=None):
+        return torch.sum((forward(theta, x0) - t_obs) ** 2)
+
+    t0 = time.perf_counter()
+    th = torch.zeros(3, dtype=torch.float64, device=device, requires_grad=True)
+    (g,) = torch.autograd.grad(loss(th), th)
+    grad_s = time.perf_counter() - t0
+    h = 0.1
+    fd = []
+    with torch.no_grad():
+        for e in torch.eye(3, dtype=torch.float64, device=device):
+            plus = loss(h * e)
+            fd.append((plus - loss(-h * e, x0=-last["u"])) / (2 * h))  # u(-h e) = -u(h e): a warm start
+    fd = torch.stack(fd)
+    grad_err = float((g - fd).abs().max() / fd.abs().max())
+
+    theta = torch.zeros(3, dtype=torch.float64, device=device, requires_grad=True)
+    opt = torch.optim.LBFGS([theta], lr=1.0, max_iter=10, tolerance_grad=1e-9, tolerance_change=1e-12,
+                            line_search_fn="strong_wolfe")
+
+    def closure():
+        opt.zero_grad()
+        val = loss(theta)
+        val.backward()
+        return val
+
+    t0 = time.perf_counter()
+    opt.step(closure)
+    fit_s = time.perf_counter() - t0
+    theta_err = float((theta.detach().cpu() - torch.tensor(INV_THETA, dtype=torch.float64)).abs().max())
+    ok = grad_err < INV_GRAD_TOL and theta_err < INV_THETA_TOL
+    _say(
+        "inverse", n_quads=(n - 1) ** 2, order=order, n_dofs=system.n_dofs, system=type(system).__name__,
+        nnz=system.nnz, dtype="float64",
+        grad_at_0=g.tolist(), central_diff=fd.tolist(), grad_rel_err=grad_err, grad_tol=INV_GRAD_TOL,
+        build_s=build_s, grad_s=grad_s, theta=theta.detach().cpu().tolist(), theta_true=list(INV_THETA),
+        theta_max_err=theta_err,
+        theta_tol=INV_THETA_TOL, cg_tol=INV_CG_TOL, lbfgs_s=fit_s, forward_solves=solves[0], ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the inverse problem failed its checks")
 
 
 # ------------------------------------------------------------------- Karman 2D
@@ -2122,6 +2748,8 @@ def main() -> int:
     v1_record = phase_kernels_v1(lp)
     stage_record = phase_kernels_stages(lp)
     records = phase_kernels_unstructured(lp)
+    qp_lattice = phase_kernels_qp_lattice(lp)
+    torch.cuda.empty_cache()
     state = phase_main_path(lp)
     jacobi_iters = phase_solve(lp, state)
     record["launches"] = zsweep.launch_count  # lattice main path: phases 4 and 5
@@ -2131,6 +2759,7 @@ def main() -> int:
     launches = phase_switches(lp, state)  # phase 6
     v1_record["launches"] = launches["zsweep_v1"]
     stage_record["launches"] = launches["stage_matmul"]
+    qp_lattice["bench"]["launches"] = phase_bench_nonfused(lp, state)
     del state
     torch.cuda.empty_cache()
     state = phase_var_path(lp, 7, "var_apply")
@@ -2153,8 +2782,14 @@ def main() -> int:
     records[1]["launches"] = sumfact_fused.launch_count
     del state
     torch.cuda.empty_cache()
+    qp_lattice["2d"]["launches"] = phase_lattice_2d(lp)
+    torch.cuda.empty_cache()
+    phase_periodic(lp)
+    phase_gmsh(lp)
+    phase_inverse(lp)
+    torch.cuda.empty_cache()
     phase_karman(lp)
-    kernels = [record, var_record, v1_record, stage_record] + records
+    kernels = [record, var_record, v1_record, stage_record] + records + [qp_lattice["2d"], qp_lattice["bench"]]
     for rec in kernels:
         if rec["launches"] <= 0:
             raise SystemExit(f"chip_smoke: the main path never launched the {rec['name']} kernel")

@@ -13,6 +13,7 @@ asked for.  ``ROADMAP.md`` lists what is ported so far.
 """
 
 from .algsys.system import AssembledSystem, MatrixFreeSystem, make_algebraic_system
+from .bcs.periodic import match_periodic_nodes
 from .common.enums import CondensationPolicy, LocalEvalStrategy, OperatorEvaluationStrategy
 from .common.kernel import (
     BoundaryInput,
@@ -31,18 +32,25 @@ from .mesh.core import ElementBlock, Mesh
 from .mesh.generators import (
     CubeMeshIds,
     CylinderInChannel2DIds,
+    HalfCylinderInChannel2DIds,
     SquareMeshIds,
     extrude_to_3d,
     graded_distribution,
     make_cube_mesh,
     make_cylinder_in_channel_2d,
     make_cylinder_in_channel_3d,
+    make_half_cylinder_in_channel_2d,
     make_line_mesh,
     make_square_mesh,
 )
+from .mesh.gmsh import read_gmsh
+from .mesh.split import split_domain
 from .mesh.traits import ElementType
 from .post.integral import compute_integral, compute_norm_l2
+from .post.native_io import Loader, load, save
 from .post.solution import FieldAccess, SolutionManager
+from .post.vtk import ExportDefinition, PvtuExporter
+from .solve.adjoint import linear_solve
 from .solve.direct import Klu2, Lapack
 from .solve.interface import IterSolveResult, IterSolverOpts
 from .solve.krylov import CG, Gmres

@@ -363,6 +363,27 @@ def _qp_algebra_const(A: np.ndarray, Ji_t, w_t, vals_l, rd, dim: int, c: int, dt
     return t[0], tr
 
 
+def _qp_algebra_nz(nz_idx, A_nz, n_eq: int, Ji_t, w_t, vals_l, rd, dim: int, c: int):
+    """Variable-coefficient per-QP algebra over the nonzero planes of A only:
+    ``nz_idx`` lists the (d, i, u) indices whose (EQ,) planes are stacked in
+    ``A_nz`` (K, EQ).  Same inputs and outputs as :func:`_qp_algebra_const`;
+    the lattice chain's variable-coefficient algebra."""
+    pders = [
+        [sum(Ji_t[j, i] * rd[j][u] for j in range(dim)) for u in range(c)] for i in range(dim)
+    ]
+    g = [vals_l] + pders
+    zero = w_t * 0.0
+    r = [zero] * n_eq
+    for k, (d, i, u) in enumerate(nz_idx):
+        r[i] = r[i] + A_nz[k] * g[d][u]
+    rw = [ri * w_t for ri in r]
+    t = [[zero] * c for _ in range(dim + 1)]
+    for k, (d, i, u) in enumerate(nz_idx):
+        t[d][u] = t[d][u] + A_nz[k] * rw[i]
+    tr = [[sum(Ji_t[j, i] * t[1 + i][u] for i in range(dim)) for u in range(c)] for j in range(dim)]
+    return t[0], tr
+
+
 def local_apply_dense_const(
     A_const: np.ndarray, Ji_t: torch.Tensor, w_t: torch.Tensor, Ball: torch.Tensor, dim: int,
     x_loc: torch.Tensor,

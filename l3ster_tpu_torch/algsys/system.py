@@ -17,12 +17,13 @@ and the layout helpers.  Two systems build on it:
 * :class:`MatrixFreeSystem` keeps the contributions and applies them
   without a matrix, in two families:
 
-  - the lattice family: a 3D volume kernel on a structured lattice block
-    runs as global banded sweeps around the fused z-sweep
-    (``ops/lattice_sumfact.py``), with its constant A baked into the kernel
+  - the lattice family: a volume kernel on a structured lattice block runs
+    as global banded sweeps (``ops/lattice_sumfact.py``): in 3D around the
+    fused z-sweep, in 2D (and in 3D under ``L3STER_TPU_FUSED_Z=0``) as the
+    non-fused chain, with its constant A baked into the kernel
     (``lattice_sf_const[_diag]``) or, when A varies in space, its nonzero
     (d, i, u) planes streamed per QP (``lattice_sf_var``); value-only
-    boundary kernels on full lattice sides run as banded face sweeps;
+    boundary kernels on full sides of a 3D lattice run as banded face sweeps;
   - the gather family, for any mesh: element values are gathered through
     the dof map, a local apply runs per element batch, and ``index_add_``
     scatters the result.  Constant-coefficient volume kernels take the
@@ -34,11 +35,11 @@ and the layout helpers.  Two systems build on it:
     boundary kernels and order-1 volumes take the direct apply.
 
 The matrix-free local evaluation strategy follows the reference's ladder, on
-every device: AUTO takes the lattice kinds when the volume block is a 3D
-lattice, else the dense apply at order >= 2.  The lattice pipeline
-(``"v2"``, or the reference's opt-in ``"v1"`` and ``"xy"``) is read from the
-environment once, when the operator is built
-(``ops.lattice_sumfact.lattice_variant``).
+every device: AUTO takes the lattice kinds when the volume block is a 2D or
+3D lattice, else the dense apply at order >= 2.  The lattice pipeline
+(``"v2"``, the reference's opt-in ``"v1"`` and ``"xy"``, or the non-fused
+``"chain"``/``"chain_qp"``) is read from the environment once, when the
+operator is built (``ops.lattice_sumfact.lattice_variant``).
 
 Kernels may read fields (``post/solution.py``): a contribution keeps the
 :class:`FieldAccess` it was assembled with (a snapshot of the manager's
@@ -63,6 +64,7 @@ import torch
 from torch.utils._pytree import tree_leaves
 
 from ..bcs.dirichlet import collect_dirichlet_dofs
+from ..bcs.periodic import match_periodic_nodes
 from ..common.enums import CondensationPolicy, LocalEvalStrategy, OperatorEvaluationStrategy
 from ..common.problem import AlgebraicSystemParams, AssemblyOptions, BCDefinition, ProblemDefinition
 from ..dofs.dofmap import build_dof_map
@@ -236,17 +238,19 @@ class _SystemBase:
         dtype=torch.float32,
         device=None,
     ):
-        if bc_def is not None and (bc_def.periodic or bc_def.normalized_dofs):
-            raise NotImplementedError(
-                "periodic and normalization conditions are not ported (ROADMAP.md queue A1)"
-            )
         self.mesh = mesh
         self.problem = problem
         self.bc_def = bc_def
         self.params = params
         self.dtype = dtype
         self.device = _resolve_device(device)
-        self.dofmap = build_dof_map(mesh, problem, condensed_nodes=self._condensed_nodes())
+        periodic_pairs, periodic_masks = match_periodic_nodes(
+            mesh, bc_def, max_dofs=problem.max_dofs_per_node
+        )
+        self.dofmap = build_dof_map(
+            mesh, problem, periodic_pairs, condensed_nodes=self._condensed_nodes(),
+            periodic_dof_masks=periodic_masks,
+        )
         self.n_dofs = self.dofmap.n_dofs
         self.n_rhs = params.n_rhs
         self.dirichlet_dofs = collect_dirichlet_dofs(mesh, self.dofmap, bc_def)
@@ -685,15 +689,11 @@ class MatrixFreeSystem(_SystemBase):
         return supports_sumfact(c.tables.element_type) and c.tables.order >= 2
 
     def _use_lattice_sf(self, c: _Contribution) -> bool:
-        """Global banded sweeps: LATTICE_SF (which requires a 3D lattice block),
-        or AUTO when the volume block is a 3D lattice.  The port has no 2D
-        lattice apply, so AUTO goes down the ladder in 2D."""
+        """Global banded sweeps: LATTICE_SF (which requires a lattice block), or
+        AUTO when the volume block is a 2D or 3D lattice (the reference's AUTO
+        on its accelerator, taken here on every device)."""
         strat = c.options.eval_strategy
         if c.tables.side is not None or strat not in (LocalEvalStrategy.AUTO, LocalEvalStrategy.LATTICE_SF):
-            return False
-        if c.tables.dim != 3:
-            if strat == LocalEvalStrategy.LATTICE_SF:
-                raise NotImplementedError("2D lattice apply is not ported (ROADMAP.md queue A4)")
             return False
         plan = self._lattice_plan(c)
         if plan is None and strat == LocalEvalStrategy.LATTICE_SF:
@@ -735,13 +735,13 @@ class MatrixFreeSystem(_SystemBase):
         return detect_lattice_plan(rows[0], rows[1], c.tables.order, c.tables.dim)
 
     def _face_plan(self, c: _Contribution, ns):
-        """Slicing plan of a boundary bucket covering one full side of a 3D
-        lattice block, restricted to the side's surface nodes ``ns``; None
-        otherwise (the port's banded face sweep is the 3D one)."""
+        """Slicing plan of a boundary bucket covering one full side of a 2D or
+        3D lattice block, restricted to the side's surface nodes ``ns``; None
+        otherwise."""
         from ..ops.lattice import detect_face_plan, detect_lattice_plan
 
         n_unk = len(c.dof_inds)
-        if c.tables.dim != 3 or self.n_dofs % n_unk:
+        if self.n_dofs % n_unk:
             return None
         full_dofs = self.dofmap.element_dofs(c.block.nodes, c.dof_inds)
         starts = full_dofs[:, :, 0]
@@ -898,16 +898,18 @@ class MatrixFreeSystem(_SystemBase):
             return ("lattice_sf_var", (nz, n_eq), plan, A_nz, Ji_l.to(self.dtype), w_l.to(self.dtype))
         # axis-aligned separable geometry (every generated box mesh): five
         # per-axis vectors instead of the (3,3,EQ)+(EQ) tensors; the v1
-        # z-sweep takes full geometry only, so v1 skips the check
-        if self._variant != "v1":
+        # z-sweep and the non-fused chain take full geometry only
+        if self._variant in ("v2", "xy"):
             g = detect_diag_geometry(Ji_l.cpu().numpy(), w_l.cpu().numpy(), ne[2] * q1)
             if g is not None:
                 return ("lattice_sf_const_diag", A_const, plan) + tuple(self._tensor(v) for v in g[1:])
         return ("lattice_sf_const", A_const, plan, Ji_l.to(self.dtype), w_l.to(self.dtype))
 
     def _boundary_data(self, c: _Contribution):
-        """A value-only kernel on a full lattice side runs as a banded face sweep;
-        every other boundary contribution is direct."""
+        """A value-only kernel on a full side of a 3D lattice runs as a banded
+        face sweep (a 2D lattice's sides are lines: ``pack_face_banded`` takes
+        none); every other boundary contribution is direct.  A direct one on a
+        full lattice side also runs on the lattice layout, by its gather."""
         from ..ops.lattice_sumfact import pack_face_banded
 
         geom = element_geometry(c.tables, self._tensor(c.verts), with_phys_ders=c.field_access is not None)
@@ -920,19 +922,23 @@ class MatrixFreeSystem(_SystemBase):
             ns = np.nonzero(np.abs(c.tables.values).max(axis=0) > 0.0)[0]
             if 0 < len(ns) < c.tables.values.shape[1]:
                 fp = self._face_plan(c, ns)
-        if fp is None:
-            return self._direct_data(c, geom, A, dmask)
-        q_order = c.options.quadrature_order(c.tables.order)
-        A_l, w_l = pack_face_banded(
-            A[:, :, :1].cpu().numpy(), geom.weights.cpu().numpy(), fp, c.tables.order, q_order
-        )
-        return ("face_banded", self._tensor(A_l), self._tensor(w_l), fp)
+        packed = None
+        if fp is not None:
+            q_order = c.options.quadrature_order(c.tables.order)
+            packed = pack_face_banded(
+                A[:, :, :1].cpu().numpy(), geom.weights.cpu().numpy(), fp, c.tables.order, q_order
+            )
+        if packed is None:
+            return self._direct_data(c, geom, A, dmask, lattice_n1=None if fp is None else fp["n1"])
+        return ("face_banded", self._tensor(packed[0]), self._tensor(packed[1]), fp)
 
-    def _direct_data(self, c: _Contribution, geom=None, A=None, dmask=None):
+    def _direct_data(self, c: _Contribution, geom=None, A=None, dmask=None, lattice_n1=None):
         """("direct", A, B, w, gather) with the reference's structural
         restriction: identically-zero derivative blocks of A are dropped, and
         basis columns with no support (off-face nodes of a value-only boundary
-        kernel) are dropped together with their dofs in the gather."""
+        kernel) are dropped together with their dofs in the gather.
+        ``lattice_n1``: the lattice of a full side the contribution covers
+        (see :meth:`_gather`)."""
         if geom is None:
             geom = element_geometry(
                 c.tables, self._tensor(c.verts), with_phys_ders=c.field_access is not None
@@ -955,18 +961,27 @@ class MatrixFreeSystem(_SystemBase):
             if not support.all() and support.any():
                 ns = np.nonzero(support)[0]
                 B = B[..., torch.as_tensor(ns, device=self.device)]
-        return ("direct", A, B, geom.weights, self._gather(c, ns))
+        return ("direct", A, B, geom.weights, self._gather(c, ns, lattice_n1))
 
-    def _gather(self, c: _Contribution, ns=None):
-        """(idx, n_rows) moving the contribution's element values: row_idx
-        (E, n_nodes) into an (n_rows, n_unk) view when every node's kernel dofs
-        are consecutive and row-aligned, else scalar dof indices (E, n_sel*n_unk)
-        with n_rows None; ``ns`` restricts to a subset of local nodes."""
+    def _gather(self, c: _Contribution, ns=None, lattice_n1=None):
+        """(idx, n_rows, lattice) moving the contribution's element values:
+        row_idx (E, n_nodes) into an (n_rows, n_unk) view when every node's
+        kernel dofs are consecutive and row-aligned, else scalar dof indices
+        (E, n_sel*n_unk) with n_rows None; ``ns`` restricts to a subset of local
+        nodes.  ``lattice`` is None, or for a full-side bucket of the lattice
+        ``lattice_n1`` (scalar indices) the pair (n1, idx_lat): the same dofs
+        in the channel-major lattice layout (u * n_rows + node row)."""
         rows = self._row_plan(c) if ns is None else None
         if rows is not None:
-            return torch.as_tensor(rows[0], device=self.device), rows[1]
+            return torch.as_tensor(rows[0], device=self.device), rows[1], None
         dofs = c.elem_dofs if ns is None else c.elem_dofs[:, ns]
-        return torch.as_tensor(dofs.reshape(dofs.shape[0], -1), device=self.device), None
+        dofs = dofs.reshape(dofs.shape[0], -1)
+        lattice = None
+        if lattice_n1 is not None:
+            n_unk = len(c.dof_inds)
+            lat = (dofs % n_unk) * (self.n_dofs // n_unk) + dofs // n_unk
+            lattice = (tuple(int(a) for a in lattice_n1), torch.as_tensor(lat, device=self.device))
+        return torch.as_tensor(dofs, device=self.device), None, lattice
 
     def _operators(self):
         """(lattice_key, [(contribution, op_data)]): the lattice key (n1, n_rows,
@@ -978,7 +993,7 @@ class MatrixFreeSystem(_SystemBase):
                 raise RuntimeError("the operator is available after end_assembly")
             from ..ops.lattice_sumfact import lattice_variant
 
-            self._variant = lattice_variant()
+            self._variant = lattice_variant(self.mesh.dim)
             ops, keys = [], set()
             for c in self._contribs:
                 if c.mode == "rhs":
@@ -990,6 +1005,8 @@ class MatrixFreeSystem(_SystemBase):
                 if d[0] in _LATTICE_KINDS or d[0] == "face_banded":
                     n1 = d[2][0] if d[0] in _LATTICE_KINDS else d[3]["n1"]
                     keys.add((tuple(int(a) for a in n1), self.n_dofs // n_unk, n_unk))
+                elif d[0] == "direct" and d[-1][2] is not None:  # a full lattice side
+                    keys.add((d[-1][2][0], self.n_dofs // n_unk, n_unk))
                 else:
                     keys.add(None)
                 ops.append((c, d))
@@ -1102,7 +1119,9 @@ class MatrixFreeSystem(_SystemBase):
                     # accumulators are fresh tensors owned here: add the plane in place
                     tacc[(key, r)].select(pos, pidx).add_(yp)
                 continue
-            idx, n_rows = d[-1]
+            idx, n_rows, lat = d[-1]
+            if lattice_io:  # only full-side buckets of the lattice: scalar indices
+                idx = lat[1]
             E = idx.shape[0]
             for r in range(r_n):
                 if r not in flat:

@@ -5,7 +5,9 @@ domain/boundary ids: ``SquareMesh.hpp:8-11`` (domain=0, bottom=1, top=2,
 left=3, right=4), ``CubeMesh.hpp:8-11`` (domain=0, back=1, front=2,
 bottom=3, top=4, left=5, right=6) and ``CylinderInChannel2D.hpp:10-13``
 (domain=0, bottom=1, top=2, left=3, right=4, cylinder=5), extruded along z
-for ``CylinderInChannel3D.hpp`` with caps back=6, front=7.  All connectivity
+for ``CylinderInChannel3D.hpp`` with caps back=6, front=7, and
+``HalfCylinderInChannel2D.hpp:10-13`` (domain=0, bottom_left=1, cylinder=2,
+bottom_right=3, top=4, left=5, right=6).  All connectivity
 is vectorized numpy; square and cube node ids are lexicographic (x fastest), matching
 the reference generator's numbering.  Copied from ``l3ster_tpu.mesh.generators``
 so that both packages build the same meshes, node for node.
@@ -29,6 +31,8 @@ __all__ = [
     "make_cube_mesh",
     "make_cylinder_in_channel_2d",
     "make_cylinder_in_channel_3d",
+    "make_half_cylinder_in_channel_2d",
+    "HalfCylinderInChannel2DIds",
     "extrude_to_3d",
     "graded_distribution",
 ]
@@ -464,3 +468,165 @@ def make_cylinder_in_channel_3d(
     distz = np.linspace(-2.0, 2.0, 5) if distz is None else np.asarray(distz, float)
     m2 = make_cylinder_in_channel_2d(**kwargs)
     return extrude_to_3d(m2, distz, back_id=back_id, front_id=front_id)
+
+
+@dataclass(frozen=True)
+class HalfCylinderInChannel2DIds:
+    """Domain ids matching the reference (HalfCylinderInChannel2D.hpp:10-13)."""
+
+    domain: int = 0
+    bottom_left: int = 1
+    cylinder: int = 2
+    bottom_right: int = 3
+    top: int = 4
+    left: int = 5
+    right: int = 6
+
+
+def make_half_cylinder_in_channel_2d(
+    r_inner: float = 0.5,
+    r_outer: float = 2.0,
+    left_offset: float = 10.0,
+    right_offset: float = 16.0,
+    top_offset: float = 15.0,
+    n_circumf: int = 64,
+    n_radial: int = 19,
+    n_left: int = 8,
+    n_right: int = 50,
+    n_top: int = 15,
+    q_radial: float = 1.135,
+    q_left: float = 1.3,
+    q_right: float = 1.01,
+    q_top: float = 1.2,
+    ids: HalfCylinderInChannel2DIds = HalfCylinderInChannel2DIds(),
+) -> Mesh:
+    """Half cylinder mounted on the bottom channel wall
+    (``mesh/primitives/HalfCylinderInChannel2D.hpp`` analog).
+
+    Same construction as :func:`make_cylinder_in_channel_2d` restricted to the
+    upper half plane: a Cartesian channel with a half-square frame carved out
+    around the origin, filled by a half O-ring blending onto the half circle.
+    """
+    if n_circumf % 8:
+        raise ValueError("n_circumf must be divisible by 8")
+    if not (0 < r_inner < r_outer < min(left_offset, right_offset, top_offset)):
+        raise ValueError("need 0 < r_inner < r_outer < all channel offsets")
+    n_side = n_circumf // 4
+
+    xs = np.concatenate(
+        [
+            graded_distribution(-left_offset, -r_outer, n_left, 1.0 / q_left)[:-1],
+            np.linspace(-r_outer, r_outer, n_side + 1),
+            graded_distribution(r_outer, right_offset, n_right, q_right)[1:],
+        ]
+    )
+    ys = np.concatenate(
+        [
+            np.linspace(0.0, r_outer, n_side // 2 + 1),
+            graded_distribution(r_outer, top_offset, n_top, q_top)[1:],
+        ]
+    )
+    nx, ny = len(xs), len(ys)
+    ix0, ix1 = n_left, n_left + n_side
+    iy1 = n_side // 2  # hole cells: iy in [0, iy1)
+
+    nid = lambda i, j: j * nx + i
+    X, Y = np.meshgrid(xs, ys, indexing="xy")
+    coords = np.zeros((nx * ny, 3))
+    coords[:, 0] = X.reshape(-1)
+    coords[:, 1] = Y.reshape(-1)
+
+    ii, jj = np.meshgrid(np.arange(nx - 1), np.arange(ny - 1), indexing="xy")
+    ii, jj = ii.reshape(-1), jj.reshape(-1)
+    in_hole = (ii >= ix0) & (ii < ix1) & (jj < iy1)
+    ii, jj = ii[~in_hole], jj[~in_hole]
+    quads = np.stack(
+        [nid(ii, jj), nid(ii + 1, jj), nid(ii, jj + 1), nid(ii + 1, jj + 1)], axis=1
+    ).astype(np.int64)
+
+    # half-frame perimeter, CCW from (+r_outer, 0): right edge up, top, left edge down
+    per = []
+    for j in range(0, iy1):
+        per.append(nid(ix1, j))
+    for i in range(ix1, ix0, -1):
+        per.append(nid(i, iy1))
+    for j in range(iy1, 0, -1):
+        per.append(nid(ix0, j))
+    per.append(nid(ix0, 0))
+    per = np.asarray(per, dtype=np.int64)
+    n_per = len(per)  # == n_circumf / 2 + 1 points (open arc)
+
+    t = graded_distribution(0.0, 1.0, n_radial, 1.0 / q_radial)[1:]
+    P = coords[per, :2]
+    theta = np.arctan2(P[:, 1], P[:, 0])
+    theta[0] = 0.0
+    theta[-1] = np.pi
+    C = r_inner * np.stack([np.cos(theta), np.sin(theta)], axis=1)
+    C[0, 1] = 0.0
+    C[-1, 1] = 0.0
+    base = nx * ny
+    ring_nodes = np.empty((n_radial, n_per), dtype=np.int64)
+    new_coords = []
+    for L in range(n_radial):
+        pts = (1.0 - t[L]) * P + t[L] * C
+        ring_nodes[L] = base + L * n_per + np.arange(n_per)
+        new_coords.append(pts)
+    new_xyz = np.zeros((n_radial * n_per, 3))
+    new_xyz[:, :2] = np.concatenate(new_coords)
+    coords = np.concatenate([coords, new_xyz])
+
+    layers = np.concatenate([per[None, :], ring_nodes], axis=0)
+    k = np.arange(n_per - 1)
+    ring_quads = []
+    for L in range(n_radial):
+        a, b = layers[L], layers[L + 1]
+        ring_quads.append(np.stack([a[k], a[k + 1], b[k], b[k + 1]], axis=1))
+    ring_quads = np.concatenate(ring_quads).astype(np.int64)
+    all_quads = np.concatenate([quads, ring_quads])
+
+    used = np.zeros(len(coords), dtype=bool)
+    used[all_quads.reshape(-1)] = True
+    renum = np.cumsum(used) - 1
+    coords = coords[used]
+    all_quads = renum[all_quads]
+
+    def line_block(node_ids: np.ndarray) -> ElementBlock:
+        nodes = np.stack([node_ids[:-1], node_ids[1:]], axis=1).astype(np.int64)
+        verts = np.zeros((len(node_ids) - 1, 2, 3))
+        verts[:, 0, :] = coords[node_ids[:-1]]
+        verts[:, 1, :] = coords[node_ids[1:]]
+        return ElementBlock(ElementType.LINE, 1, nodes, verts)
+
+    # walls: cartesian bottom pieces + the ring's radial wall columns (y = 0)
+    bot_right_ids = np.concatenate(
+        [renum[layers[::-1, 0]], renum[nid(np.arange(ix1 + 1, nx), 0)]]
+    )  # from (r, 0) outward through the ring, then cartesian to the outlet
+    bot_left_ids = np.concatenate(
+        [renum[nid(np.arange(0, ix0 + 1), 0)], renum[layers[1:, -1]]]
+    )  # inlet wall to (-s, 0), then ring columns inward to (-r, 0)
+    top_ids = renum[nid(np.arange(nx), ny - 1)]
+    left_ids = renum[nid(0, np.arange(ny))]
+    right_ids = renum[nid(nx - 1, np.arange(ny))]
+    cyl_ids = renum[layers[-1]]
+
+    vol = ElementBlock(ElementType.QUAD, 1, all_quads, coords[all_quads])
+    _fix_orientation(vol)
+
+    domains = {
+        ids.domain: [vol],
+        ids.bottom_left: [line_block(bot_left_ids)],
+        ids.cylinder: [line_block(cyl_ids)],
+        ids.bottom_right: [line_block(bot_right_ids)],
+        ids.top: [line_block(top_ids)],
+        ids.left: [line_block(left_ids)],
+        ids.right: [line_block(right_ids)],
+    }
+    return Mesh(
+        dim=2,
+        n_nodes=len(coords),
+        node_coords=coords,
+        domains=domains,
+        boundary_ids=(
+            ids.bottom_left, ids.cylinder, ids.bottom_right, ids.top, ids.left, ids.right
+        ),
+    )

@@ -35,6 +35,7 @@ __all__ = [
     "coefficient_tables",
     "upload_coefficients",
     "device_and_stream",
+    "no_autograd",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -151,6 +152,22 @@ def coefficient_tables(A: np.ndarray):
     ``t[s] = sum_{e in [slotstart[s], slotstart[s+1])} tval[e] * r[teq[e]]``."""
     A = np.ascontiguousarray(A, dtype=np.float64)
     return _tables(A.tobytes(), A.shape)
+
+
+def no_autograd(name: str, *inputs) -> None:
+    """Raise when autograd records and an input of a kernel launch (tensors,
+    nested in tuples or lists) requires grad: the hand-written kernels have no
+    backward, so their outputs would silently carry no gradient."""
+    from torch.utils._pytree import tree_leaves
+
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(inputs)
+    ):
+        raise NotImplementedError(
+            f"{name}: an input requires grad, and the hand-written CUDA kernels have no "
+            "backward (none is ported; ROADMAP.md). Differentiate with respect to the "
+            "right-hand side, or run an operator kind that is plain torch."
+        )
 
 
 def device_and_stream(x: torch.Tensor) -> tuple[int, int]:

@@ -9,17 +9,25 @@ block-banded matrix
 
 applied to the GLOBAL lattice tensor.  QP space comes out in interleaved
 order (ez qz, ey qy, ex qx); the per-QP geometry tensors are pre-permuted to
-match.  In 3D the z stage with the per-QP algebra is the fused z-sweep
-(``ops/zsweep.py``): the CUDA kernel on the card, its plain version on the
-CPU.  Around it, one of three pipelines of the reference (:func:`lattice_variant`):
+match.  The pipelines of the reference (:func:`lattice_variant`):
 
-* ``"v2"`` (default): x and y stages as plain ``torch.einsum`` contractions,
-  the z-sweep on (c, n1z, RQ) tensors, constant or variable A;
+* ``"v2"`` (3D default): x and y stages as plain ``torch.einsum``
+  contractions, then the fused z-sweep (``ops/zsweep.py``: the CUDA kernel
+  on the card, its plain version on the CPU) on (c, n1z, RQ) tensors, with
+  constant or variable A;
 * ``"v1"`` (``L3STER_TPU_ZSWEEP=v1``): the y stages write (n1z, c, RQ)
   tensors for the v1 z-sweep (``ops/zsweep_v1.py``), full geometry and
   constant A only;
 * ``"xy"`` (``L3STER_TPU_XY_PALLAS=1``): every x/y stage is the stage kernel
-  (``ops/stages.py``), with the z-sweep's lanes in (Q, R) order; constant A.
+  (``ops/stages.py``), with the z-sweep's lanes in (Q, R) order; constant A;
+* ``"chain"`` (always in 2D; in 3D under ``L3STER_TPU_FUSED_Z=0``): the
+  non-fused chain: every sweep as plain contractions (:func:`lattice_interp`,
+  :func:`lattice_transpose`) around the per-QP algebra on whole QP-space
+  tensors, plain torch;
+* ``"chain_qp"`` (the chain under ``L3STER_TPU_LATTICE_PALLAS_QP=1``): the
+  chain with a constant A's per-QP algebra as the per-QP kernel
+  (``ops/qp.py``) on the (d1*c, EQ) row stack; a variable A keeps the plain
+  chain.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from . import zsweep_v1
+from .qp import qp_algebra_const_lattice
 from .stages import device_table, kstacked_matmul
 from .zsweep import fused_z_sweep, zsweep_tables
 
@@ -38,17 +47,26 @@ __all__ = [
     "banded_tables",
     "lattice_qp_perm",
     "lattice_variant",
+    "lattice_interp",
+    "lattice_transpose",
     "local_apply_lattice",
     "pack_face_banded",
     "face_apply_banded",
 ]
 
+_CHAINS = ("chain", "chain_qp")
 
-def lattice_variant() -> str:
-    """The lattice pipeline the environment selects, under the reference's
-    switches and defaults: "xy" when ``L3STER_TPU_XY_PALLAS`` is 1 or true,
-    else "v1" when ``L3STER_TPU_ZSWEEP`` is v1, else "v2".  The x/y pipeline
-    and v1 take constant A only; a variable A runs "v2" whatever is set."""
+
+def lattice_variant(dim: int) -> str:
+    """The lattice pipeline the environment selects for a ``dim``-D lattice,
+    under the reference's switches and defaults.  In 2D, or in 3D when
+    ``L3STER_TPU_FUSED_Z`` is 0 or false, the non-fused chain: "chain_qp"
+    when ``L3STER_TPU_LATTICE_PALLAS_QP`` is 1 or true, else "chain".
+    Otherwise "xy" when ``L3STER_TPU_XY_PALLAS`` is 1 or true, else "v1" when
+    ``L3STER_TPU_ZSWEEP`` is v1, else "v2".  The x/y pipeline and v1 take
+    constant A only; a variable A runs "v2" in their place."""
+    if dim != 3 or os.environ.get("L3STER_TPU_FUSED_Z", "1") in ("0", "false"):
+        return "chain_qp" if os.environ.get("L3STER_TPU_LATTICE_PALLAS_QP", "0") in ("1", "true") else "chain"
     if os.environ.get("L3STER_TPU_XY_PALLAS", "0") in ("1", "true"):
         return "xy"
     if os.environ.get("L3STER_TPU_ZSWEEP", "v2") == "v1":
@@ -124,6 +142,77 @@ def _tabs(order: int, q_order: int, ne: tuple, dtype, device):
 def _ztabs(order: int, q_order: int, ne_z: int, dtype, device):
     Ng, Dg = banded_tables(order, q_order, ne_z)
     return zsweep_tables(Ng.T, Dg.T, dtype, device)
+
+
+def lattice_interp(t: torch.Tensor, tabs):
+    """Global lattice tensor (c, n1_d, ..., n1_x) -> vals and per-axis
+    reference derivatives, each (c, Q_d, ..., Q_x) in interleaved QP order;
+    ``tabs`` holds (NgT, DgT) per axis, x first."""
+    if len(tabs) == 2:
+        (NxT, DxT), (NyT, DyT) = tabs
+        ax = torch.einsum("cyx,xQ->cyQ", t, NxT)
+        adx = torch.einsum("cyx,xQ->cyQ", t, DxT)
+        v = torch.einsum("cyQ,yR->cRQ", ax, NyT)
+        dy = torch.einsum("cyQ,yR->cRQ", ax, DyT)
+        dx = torch.einsum("cyQ,yR->cRQ", adx, NyT)
+        return v, (dx, dy)
+    (NxT, DxT), (NyT, DyT), (NzT, DzT) = tabs
+    ax = torch.einsum("czyx,xQ->czyQ", t, NxT)
+    adx = torch.einsum("czyx,xQ->czyQ", t, DxT)
+    b = torch.einsum("czyQ,yR->czRQ", ax, NyT)
+    bdy = torch.einsum("czyQ,yR->czRQ", ax, DyT)
+    bdx = torch.einsum("czyQ,yR->czRQ", adx, NyT)
+    v = torch.einsum("czRQ,zS->cSRQ", b, NzT)
+    dz = torch.einsum("czRQ,zS->cSRQ", b, DzT)
+    dy = torch.einsum("czRQ,zS->cSRQ", bdy, NzT)
+    dx = torch.einsum("czRQ,zS->cSRQ", bdx, NzT)
+    return v, (dx, dy, dz)
+
+
+def lattice_transpose(t0: torch.Tensor, td, tabs) -> torch.Tensor:
+    """Exact transpose of :func:`lattice_interp`: the interleaved QP tensors
+    (t0 the values part, td the per-axis derivative parts) ->
+    (c, n1_d, ..., n1_x)."""
+    if len(tabs) == 2:
+        (NxT, DxT), (NyT, DyT) = tabs
+        a = torch.einsum("cRQ,yR->cyQ", t0, NyT) + torch.einsum("cRQ,yR->cyQ", td[1], DyT)
+        adx = torch.einsum("cRQ,yR->cyQ", td[0], NyT)
+        return torch.einsum("cyQ,xQ->cyx", a, NxT) + torch.einsum("cyQ,xQ->cyx", adx, DxT)
+    (NxT, DxT), (NyT, DyT), (NzT, DzT) = tabs
+    b = torch.einsum("cSRQ,zS->czRQ", t0, NzT) + torch.einsum("cSRQ,zS->czRQ", td[2], DzT)
+    bdy = torch.einsum("cSRQ,zS->czRQ", td[1], NzT)
+    bdx = torch.einsum("cSRQ,zS->czRQ", td[0], NzT)
+    a = torch.einsum("czRQ,yR->czyQ", b, NyT) + torch.einsum("czRQ,yR->czyQ", bdy, DyT)
+    adx = torch.einsum("czRQ,yR->czyQ", bdx, NyT)
+    return torch.einsum("czyQ,xQ->czyx", a, NxT) + torch.einsum("czyQ,xQ->czyx", adx, DxT)
+
+
+def _apply_chain(A_const, Ji_l, w_l, var, t, tabs, qsh: tuple, qp_kernel: bool):
+    """The non-fused chain (the reference's branch for 2D and for 3D without
+    the fused z-sweep): interpolate to the QPs, run the per-QP algebra on the
+    whole interleaved QP space, transpose back.  With ``qp_kernel`` a
+    constant A's algebra runs as the per-QP kernel on the row stack
+    [v; d_x; d_y(; d_z)] of shape (d1*c, EQ), rows d*c+u."""
+    from ..algsys.local import _qp_algebra_const, _qp_algebra_nz
+
+    dim, c, EQ = len(tabs), t.shape[0], w_l.shape[0]
+    v, ders = lattice_interp(t, tabs)
+    if qp_kernel and A_const is not None:
+        g = torch.cat([v.reshape(c, EQ)] + [d.reshape(c, EQ) for d in ders])
+        tt = qp_algebra_const_lattice(A_const, g, Ji_l.reshape(dim * dim, EQ), w_l)
+        t0s = tt[:c].reshape((c,) + qsh)
+        tds = [tt[(1 + j) * c : (2 + j) * c].reshape((c,) + qsh) for j in range(dim)]
+        return lattice_transpose(t0s, tds, tabs)
+    vals_l = [v[u].reshape(EQ) for u in range(c)]
+    rd = [[d[u].reshape(EQ) for u in range(c)] for d in ders]
+    if A_const is not None:
+        t0, tr = _qp_algebra_const(np.asarray(A_const), Ji_l, w_l, vals_l, rd, dim, c, t.dtype)
+    else:
+        nz_idx, A_nz, n_eq = var
+        t0, tr = _qp_algebra_nz(nz_idx, A_nz, n_eq, Ji_l, w_l, vals_l, rd, dim, c)
+    t0s = torch.stack([ti.reshape(qsh) for ti in t0])
+    tds = [torch.stack([tj.reshape(qsh) for tj in tr[j]]) for j in range(dim)]
+    return lattice_transpose(t0s, tds, tabs)
 
 
 def pack_face_banded(A, w, fp: dict, order: int, q_order: int):
@@ -238,27 +327,33 @@ def local_apply_lattice(
     geom: tuple | None = None,  # ("diag", jx, jy, jz, wyx, wz) factorized geometry
     tensor_io: bool = False,  # x IS the channel-leading tensor; return same
     var: tuple | None = None,  # (nz_idx, A_nz (K, EQ), n_eq) variable coefficients
-    variant: str = "v2",  # "v2", "v1" or "xy": see the module docstring
+    variant: str = "v2",  # "v2", "v1", "xy", "chain" or "chain_qp": see the module docstring
 ) -> torch.Tensor:
-    """3D local apply on the global lattice; (n_rows, c).
+    """Local apply on the global lattice; (n_rows, c).
 
-    x/y interpolation, the fused z-sweep (``ops/zsweep.py``), then the y/x
-    transposes, by the pipeline ``variant`` names; a variable A (``var``)
-    always takes "v2".  With ``tensor_io`` the caller owns the
-    (c, n1z, n1y, n1x) layout: x is the channel-leading lattice tensor and
-    the result is returned in the same layout."""
+    In 3D by the pipeline ``variant`` names: x/y interpolation, the fused
+    z-sweep (``ops/zsweep.py``), then the y/x transposes, or the non-fused
+    chain; a variable A (``var``) takes "v2" in place of "v1" and "xy".  2D
+    always runs the chain (``variant`` "chain_qp" or else "chain").  With
+    ``tensor_io`` the caller owns the (c, n1_d, ..., n1_x) layout: x is the
+    channel-leading lattice tensor and the result is returned in the same
+    layout."""
     dim = len(n1)
-    if dim != 3 or (A_const is None) == (var is None):
-        raise NotImplementedError(
-            "the port's lattice apply covers 3D kernels with either a constant A or var; "
-            "2D is on ROADMAP.md (queue A4)"
-        )
+    if dim not in (2, 3) or (A_const is None) == (var is None):
+        raise ValueError("the lattice apply takes a 2D or 3D kernel with either a constant A or var")
     c = x.shape[0] if tensor_io else x.shape[-1]
     q1 = q_order // 2 + 1
-    (NxT, DxT), (NyT, DyT), _ = _tabs(order, q_order, tuple(ne), x.dtype, x.device)
-    ztabs = _ztabs(order, q_order, ne[2], x.dtype, x.device)
+    tabs = _tabs(order, q_order, tuple(ne), x.dtype, x.device)
     t = x if tensor_io else x.T.reshape((c,) + tuple(reversed(n1)))
-    S, R, Q = (q1 * n for n in reversed(ne))
+    qsh = tuple(q1 * n for n in reversed(ne))
+    if dim == 2 or variant in _CHAINS:
+        if geom is not None:
+            raise ValueError("the non-fused lattice chain has no factorized-geometry path")
+        y = _apply_chain(A_const, Ji_l, w_l, var, t, tabs, qsh, variant == "chain_qp")
+        return y if tensor_io else y.reshape(c, -1).T.reshape(x.shape)
+    (NxT, DxT), (NyT, DyT), _ = tabs
+    ztabs = _ztabs(order, q_order, ne[2], x.dtype, x.device)
+    S, R, Q = qsh
     n1z = t.shape[1]
     geom_t = geom if geom is not None else ("full", Ji_l.reshape(9, S, R * Q), w_l.reshape(S, R * Q))
     if var is not None:

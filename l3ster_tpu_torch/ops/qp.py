@@ -1,17 +1,20 @@
 """Per-QP least-squares algebra of the dense apply: a Hopper CUDA kernel and its plain version.
 
 Port of the Pallas TPU kernel ``l3ster_tpu/ops/pallas_qp.py:qp_algebra_const_pallas``:
-between the two basis matmuls of the dense-basis apply
-(``algsys/local.py:local_apply_dense_const``) every quadrature point runs
-``g_phys = J^-T g_ref``, ``r = A g``, ``w r``, ``t = A^T (w r)``,
-``t_ref = J^-1 t`` with a constant A, in 2D or 3D.  Unlike the TPU kernel,
-which works on (d1*c, EQ) lanes, this one reads and writes the matmuls' own
-(E, c, d1, Q) layout (``csrc/qp_algebra.cu`` has the design note).
+every quadrature point runs ``g_phys = J^-T g_ref``, ``r = A g``, ``w r``,
+``t = A^T (w r)``, ``t_ref = J^-1 t`` with a constant A, in 2D or 3D.  One
+kernel source (``csrc/qp_algebra.cu``, which has the design note) reads and
+writes two layouts in place:
 
-:func:`qp_algebra_const` is the dispatcher: on a CPU tensor it runs
-:func:`qp_algebra_const_plain` (the torch ``_qp_algebra_const`` chain of
-``algsys/local.py``); on a CUDA tensor it launches the kernel or raises.
-``launch_count`` counts kernel launches.
+* the dense-basis apply's (E, c, d1, Q), between its two basis matmuls
+  (``algsys/local.py:local_apply_dense_const``): :func:`qp_algebra_const`;
+* the lattice chain's row stack (d1*c, EQ), rows d*c+u, the TPU kernel's own
+  layout (``ops/lattice_sumfact.py``, pipeline "chain_qp"):
+  :func:`qp_algebra_const_lattice`.
+
+Each dispatcher runs its plain version (the torch ``_qp_algebra_const`` chain
+of ``algsys/local.py``) on a CPU tensor, and launches the kernel on a CUDA
+tensor or raises.  ``launch_count`` counts kernel launches of both layouts.
 """
 
 from __future__ import annotations
@@ -21,9 +24,14 @@ import ctypes
 import numpy as np
 import torch
 
-from ._cuda import SMEM_LIMIT, declare_coefficients, device_and_stream, load, upload_coefficients
+from ._cuda import SMEM_LIMIT, declare_coefficients, device_and_stream, load, no_autograd, upload_coefficients
 
-__all__ = ["qp_algebra_const", "qp_algebra_const_plain"]
+__all__ = [
+    "qp_algebra_const",
+    "qp_algebra_const_plain",
+    "qp_algebra_const_lattice",
+    "qp_algebra_const_lattice_plain",
+]
 
 launch_count = 0  # kernel launches; read and reset by callers that check the path
 # per device: the coefficient set last uploaded to the kernel's __constant__ memory
@@ -32,15 +40,11 @@ _uploaded: dict = {}
 
 def qp_algebra_const_plain(A_const, G: torch.Tensor, Ji_t: torch.Tensor, w_t: torch.Tensor):
     """Plain torch version: T (E, c, d1, Q) from G (E, c, d1, Q), Ji_t (dim, dim, EQ)
-    and w_t (EQ,), with EQ = E * Q in element-major order."""
-    from ..algsys.local import _qp_algebra_const
-
+    and w_t (EQ,), with EQ = E * Q in element-major order: the lattice layout's
+    plain version on G's rows."""
     E, c, d1, Q = G.shape
-    dim = d1 - 1
-    vals_l = [G[:, u, 0].reshape(E * Q) for u in range(c)]
-    rd = [[G[:, u, 1 + j].reshape(E * Q) for u in range(c)] for j in range(dim)]
-    t0, tr = _qp_algebra_const(np.asarray(A_const, np.float64), Ji_t, w_t, vals_l, rd, dim, c, G.dtype)
-    T = torch.stack([torch.stack(ch) for ch in [t0] + list(tr)])  # (d1, c, EQ)
+    g = G.permute(2, 1, 0, 3).reshape(d1 * c, E * Q)
+    T = qp_algebra_const_lattice_plain(A_const, g, Ji_t.reshape(-1, E * Q), w_t)
     return T.reshape(d1, c, E, Q).permute(2, 1, 0, 3).contiguous()
 
 
@@ -51,7 +55,38 @@ def qp_algebra_const(A_const, G: torch.Tensor, Ji_t: torch.Tensor, w_t: torch.Te
         return qp_algebra_const_plain(A_const, G, Ji_t, w_t)
     if G.device.type != "cuda":
         raise ValueError(f"qp_algebra_const runs on CPU or CUDA tensors, got {G.device}")
-    return _launch(A_const, G, Ji_t, w_t)
+    E, c, d1, Q = G.shape
+    return _launch(A_const, G, Ji_t, w_t, c, d1, Q, lattice=False)
+
+
+def qp_algebra_const_lattice_plain(A_const, g: torch.Tensor, ji: torch.Tensor, w: torch.Tensor):
+    """Plain torch version on the lattice layout: t (d1*c, EQ) from the row
+    stack g (d1*c, EQ), rows d*c+u, ji (dim*dim, EQ), row j*dim+i holding
+    J^-1[j, i], and w (EQ,)."""
+    from ..algsys.local import _qp_algebra_const
+
+    A = np.asarray(A_const, np.float64)
+    d1, c, EQ = A.shape[0], A.shape[2], g.shape[1]
+    dim = d1 - 1
+    vals_l = [g[u] for u in range(c)]
+    rd = [[g[(1 + j) * c + u] for u in range(c)] for j in range(dim)]
+    t0, tr = _qp_algebra_const(A, ji.reshape(dim, dim, EQ), w, vals_l, rd, dim, c, g.dtype)
+    return torch.stack(list(t0) + [tj for j in range(dim) for tj in tr[j]])
+
+
+def qp_algebra_const_lattice(A_const, g: torch.Tensor, ji: torch.Tensor, w: torch.Tensor):
+    """t (d1*c, EQ) of the per-QP chain on the lattice chain's row stack: the
+    CUDA kernel for CUDA tensors, :func:`qp_algebra_const_lattice_plain` for
+    CPU tensors."""
+    if g.device.type == "cpu":
+        return qp_algebra_const_lattice_plain(A_const, g, ji, w)
+    if g.device.type != "cuda":
+        raise ValueError(f"qp_algebra_const_lattice runs on CPU or CUDA tensors, got {g.device}")
+    d1 = np.asarray(A_const).shape[0]
+    c = g.shape[0] // d1
+    if g.dim() != 2 or g.shape[0] != d1 * c:
+        raise ValueError(f"g must be (d1*c, EQ) = ({d1}*c, EQ), got {tuple(g.shape)}")
+    return _launch(A_const, g, ji.reshape(d1 - 1, d1 - 1, -1), w, c, d1, g.shape[1], lattice=True)
 
 
 def _declare(lib) -> None:
@@ -59,17 +94,19 @@ def _declare(lib) -> None:
     declare_coefficients(lib, "qp")
     for name in ("qp_f32", "qp_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 4 + [ci] * 7 + [vp]
+        fn.argtypes = [vp] * 4 + [ci] * 8 + [vp]
         fn.restype = ci
     lib.qp_threads.restype = ci
 
 
-def _launch(A_const, G, Ji_t, w_t):
+def _launch(A_const, G, Ji_t, w_t, c: int, d1: int, Q: int, lattice: bool):
+    """Checks and launch, for G (E, c, d1, Q) or, with ``lattice``, the row
+    stack G (d1*c, EQ) (then Q is EQ, one element)."""
     global launch_count
+    no_autograd("qp_algebra", G, Ji_t, w_t)
     lib = load("qp_algebra", _declare)
     A = np.ascontiguousarray(A_const, dtype=np.float64)
-    E, c, d1, Q = G.shape
-    dim, EQ = d1 - 1, E * Q
+    dim, EQ = d1 - 1, G.numel() // (c * d1)
     if dim not in (2, 3) or A.ndim != 3 or A.shape[0] != d1 or A.shape[2] != c:
         raise ValueError(f"A_const must be ({d1}, n_eq, {c}) with dim 2 or 3, got {A.shape}")
     if G.dtype not in (torch.float32, torch.float64):
@@ -97,7 +134,7 @@ def _launch(A_const, G, Ji_t, w_t):
     fn = lib.qp_f32 if G.dtype == torch.float32 else lib.qp_f64
     rc = fn(
         G.data_ptr(), Ji_t.data_ptr(), w_t.data_ptr(), out.data_ptr(),
-        EQ, Q, c, dim, n_eq, smem, dev, stream,
+        EQ, Q, c, dim, n_eq, int(lattice), smem, dev, stream,
     )
     if rc != 0:
         raise RuntimeError(f"qp_algebra kernel launch failed: CUDA error {rc}")

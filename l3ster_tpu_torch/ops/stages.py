@@ -27,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ._cuda import SMEM_LIMIT, device_and_stream, load
+from ._cuda import SMEM_LIMIT, device_and_stream, load, no_autograd
 
 __all__ = [
     "StageBand",
@@ -185,6 +185,7 @@ def kstacked_matmul(
         raise ValueError("the stage band was built from another table than T")
     if x.device.type == "cpu":
         return kstacked_matmul_plain(x, x2, T, N)
+    no_autograd("stage_matmul", x, x2, T)
     if band is None:
         band = band_descriptor(T, x.shape[1])
     out = _launch(x, x2, T, N, band)

@@ -21,7 +21,15 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ._cuda import SMEM_LIMIT, coefficient_tables, declare_coefficients, device_and_stream, load, upload_coefficients
+from ._cuda import (
+    SMEM_LIMIT,
+    coefficient_tables,
+    declare_coefficients,
+    device_and_stream,
+    load,
+    no_autograd,
+    upload_coefficients,
+)
 
 __all__ = ["sumfact_const_apply", "sumfact_const_apply_plain"]
 
@@ -138,6 +146,7 @@ def _library():
 
 def _launch(A_const, ji, w, order, q_order, dim, x_loc):
     global launch_count
+    no_autograd("sumfact_fused", ji, w, x_loc)
     lib = _library()
     A = np.ascontiguousarray(A_const, dtype=np.float64)
     E, n_nodes, c = x_loc.shape

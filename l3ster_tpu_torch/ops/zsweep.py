@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ._cuda import SMEM_LIMIT as _SMEM_LIMIT
-from ._cuda import coefficient_tables, declare_coefficients, device_and_stream, load, upload_coefficients
+from ._cuda import coefficient_tables, declare_coefficients, device_and_stream, load, no_autograd, upload_coefficients
 
 __all__ = [
     "detect_diag_geometry",
@@ -313,6 +313,7 @@ def _chunk_edges(tabs: ZSweepTables, CL: int):
 def launch(A_const, b, bdy, bdx, geom, tabs: ZSweepTables, var=None, layout: str = "cz"):
     """Launch the CUDA kernel on CUDA tensors (no launch count: each public
     wrapper counts its own launches); raises on what the kernel does not take."""
+    no_autograd("zsweep", b, bdy, bdx, geom, var)
     if b.device.type != "cuda":
         raise ValueError(f"the z-sweep kernel runs on CUDA tensors, got {b.device}")
     lib = _library()

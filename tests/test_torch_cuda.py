@@ -13,7 +13,12 @@ import torch
 
 import l3ster_tpu_torch as lp
 from l3ster_tpu_torch.ops.lattice_sumfact import banded_tables, local_apply_lattice
-from l3ster_tpu_torch.ops.qp import qp_algebra_const, qp_algebra_const_plain
+from l3ster_tpu_torch.ops.qp import (
+    qp_algebra_const,
+    qp_algebra_const_lattice,
+    qp_algebra_const_lattice_plain,
+    qp_algebra_const_plain,
+)
 from l3ster_tpu_torch.ops.sumfact_fused import sumfact_const_apply, sumfact_const_apply_plain
 from l3ster_tpu_torch.ops.zsweep import (
     detect_diag_geometry,
@@ -115,6 +120,28 @@ def test_qp_kernel_matches_plain(cuda, dim):
         got = qp_algebra_const(A, *(x.to(cuda, dt) for x in (G, Ji_t, w)))
         torch.cuda.synchronize()
         assert _rel(got.cpu(), ref) < tol, dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim, c, n_eq", [(2, 3, 4), (3, 4, 7)])
+def test_qp_kernel_lattice_layout_matches_plain(cuda, dim, c, n_eq):
+    """The per-QP kernel on the lattice chain's (d1*c, EQ) row stack against
+    its plain version (f64 on the CPU), with a ragged last block."""
+    from l3ster_tpu_torch.ops import qp
+
+    EQ = 5 * 256 + 77
+    rng = np.random.default_rng(10 + dim)
+    A = _sparse_A(rng, dim + 1, n_eq, c)
+    g = torch.as_tensor(rng.normal(size=((dim + 1) * c, EQ)))
+    ji = torch.as_tensor(rng.normal(size=(dim * dim, EQ)) * 0.1 + np.eye(dim).reshape(-1, 1))
+    w = torch.as_tensor(rng.uniform(0.5, 1.0, EQ))
+    ref = qp_algebra_const_lattice_plain(A, g, ji, w)
+    for dt, tol in TOLS:
+        n0 = qp.launch_count
+        got = qp_algebra_const_lattice(A, *(x.to(cuda, dt) for x in (g, ji, w)))
+        torch.cuda.synchronize()
+        assert qp.launch_count == n0 + 1
+        assert got.shape == g.shape and _rel(got.cpu(), ref) < tol, dt
 
 
 def _check_sumfact(cuda, dim, order, qo, E, c, n_eq, seed):
@@ -655,3 +682,23 @@ def test_triangular_preconditioners_cuda_match_cpu(cuda, name):
         assert apply.n_levels > 2
         out[d] = apply(r.to(d), *consts).cpu()
     assert _rel(out[cuda], out["cpu"]) < 1e-11
+
+
+@pytest.mark.cuda
+def test_linear_solve_raises_on_kernel_kind_with_grad(cuda):
+    """A const that requires grad and reaches a hand-written kernel (the
+    bench's z-sweep) raises, naming ROADMAP.md, rather than return a
+    gradient without the kernel's part; with respect to b the gradient runs."""
+    gpu = _box_system(_diffusion_3d, cuda, order=2)
+    fn, (ops,) = gpu.operator_parts()
+    (c, d), rest = ops[0], ops[1:]
+    assert d[0] == "lattice_sf_const_diag"
+    jx = d[3].clone().requires_grad_()
+    ops_g = [(c, d[:3] + (jx,) + d[4:])] + list(rest)
+    b = gpu.effective_rhs()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lp.linear_solve(fn, (ops_g,), b, tol=1e-10)
+    bg = b.clone().requires_grad_()
+    u = lp.linear_solve(fn, (ops,), bg, tol=1e-12, max_iters=3000)
+    u.pow(2).sum().backward()
+    assert torch.isfinite(bg.grad).all() and bg.grad.abs().max() > 0

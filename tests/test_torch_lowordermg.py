@@ -2,14 +2,13 @@
 
 The reference's cases (``tests/test_lowordermg.py``): 3D diffusion on a
 2^3-hex cube at p = 3 and 2D diffusion on 4^2 quads at p = 4.  The
-reference's fine systems take ``LATTICE_SF`` (3D) and ``DENSE_MXU`` (2D)
-forced, the algorithms the port's AUTO picks (the reference's AUTO picks
-them only on a TPU).  The numpy helpers, the Chebyshev smoother, an order-1 level, the
+reference's fine systems take ``LATTICE_SF`` forced, the algorithm the
+port's AUTO picks (the reference's AUTO picks it only on a TPU); the 2D case
+also runs with ``DENSE_MXU`` in both packages.  The numpy helpers, the Chebyshev smoother, an order-1 level, the
 coarse dense inverse, one V-cycle (pre-smoothing degree 2 and 0, dof and
 lattice layouts) from the same power-iteration start vector in both
 packages, and CG + LowOrderMG.  The port's order-1 levels take the lattice
-kinds in 3D and the direct apply in 2D; the reference's take the direct
-apply on the CPU: the same operators.
+kinds; the reference's take the direct apply on the CPU: the same operators.
 """
 
 import jax
@@ -54,9 +53,11 @@ def _t_equals_x(inp, out):
     out[0] = inp.point.x
 
 
-def _build(pkg, mesh, dim):
+def _build(pkg, mesh, dim, strategy="AUTO"):
     """The reference's 3D (p = 3, 2^3 hexes, Dirichlet T = x on the x faces)
-    or 2D (p = 4, 4^2 quads) LowOrderMG problem, matrix-free."""
+    or 2D (p = 4, 4^2 quads) LowOrderMG problem, matrix-free.  ``strategy``
+    "AUTO" runs the port's AUTO against the reference's LATTICE_SF; another
+    name runs that strategy in both."""
     n_unk = dim + 1
     problem = pkg.ProblemDefinition(n_unk, [0])
     bcs = pkg.BCDefinition(problem)
@@ -71,12 +72,12 @@ def _build(pkg, mesh, dim):
     kdir = pkg.wrap_boundary_residual_kernel(_t_equals_x, pkg.KernelParams(dim, 1))
     if pkg is lt:
         system = lt.make_algebraic_system(mesh, problem, bcs, params)
-        strat = lt.LocalEvalStrategy.LATTICE_SF if dim == 3 else lt.LocalEvalStrategy.DENSE_MXU
+        strat = getattr(lt.LocalEvalStrategy, "LATTICE_SF" if strategy == "AUTO" else strategy)
     else:
         system = lp.make_algebraic_system(
             _port_mesh(mesh), problem, bcs, params, dtype=torch.float64, device="cpu"
         )
-        strat = lp.LocalEvalStrategy.AUTO
+        strat = getattr(lp.LocalEvalStrategy, strategy)
     opts = pkg.AssemblyOptions(value_order=1, derivative_order=0, eval_strategy=strat)
     system.set_dirichlet_bc_values(kdir, [5, 6] if dim == 3 else [3, 4], [0])
     system.begin_assembly()
@@ -112,10 +113,10 @@ def pair3():
     return mesh, _build(lt, mesh, 3), _build(lp, mesh, 3)
 
 
-@pytest.fixture(scope="module")
-def pair2():
+@pytest.fixture(scope="module", params=["AUTO", "DENSE_MXU"])
+def pair2(request):
     mesh = lt.generate_mesh(lt.make_square_mesh(np.linspace(0.0, 1.0, 5)), order=4)
-    return mesh, _build(lt, mesh, 2), _build(lp, mesh, 2)
+    return request.param, _build(lt, mesh, 2, request.param), _build(lp, mesh, 2, request.param)
 
 
 @pytest.fixture
@@ -231,9 +232,13 @@ def test_cg_lowordermg_3d_matches_reference(pair3, same_start):
 
 def test_cg_lowordermg_2d_matches_reference(pair2, same_start):
     """The 2D case (4^2 quads at p = 4, smoothing degree 3, as
-    ``tests/test_lowordermg.py:63-86`` runs it): the port's AUTO takes the
-    dense apply on the fine level (the reference's is forced to DENSE_MXU,
-    the same algorithm) and the direct one on the order-1 levels."""
-    _, sj, sp = pair2
-    assert [d[0] for _, d in sp._operators()[1]] == ["dense_const", "direct", "direct"]
+    ``tests/test_lowordermg.py:63-86`` runs it), on the fine level by the
+    port's AUTO (the 2D lattice chain, solved in the lattice layout; the
+    reference forced to LATTICE_SF) and by DENSE_MXU in both packages; the
+    faces are direct."""
+    strategy, sj, sp = pair2
+    fine = "lattice_sf_const" if strategy == "AUTO" else "dense_const"
+    assert [d[0] for _, d in sp._operators()[1]] == [fine, "direct", "direct"]
+    assert (sp.lattice_layout_key() is not None) == (strategy == "AUTO")
+    assert sp.lattice_layout_key() == sj.lattice_layout_key()
     _solve_pair(sj, sp, dict(smooth_degree=3), 1e-12)
