@@ -134,6 +134,18 @@ Phases, each reported on its own line:
    central differences, theta recovered by ``torch.optim.LBFGS``).
    The per-QP kernel's lattice layout is also held against its plain
    version at the 2D cell's and the bench's shapes in phase 3.
+15. distribution, all shards on the one card: ``box`` (after phase 5: the
+   bench through ``box_parallelize`` at 2 and 4 z slabs and a (2, 2) pencil
+   grid; the apply against the single one, busy and exchange times, one
+   z-sweep launch a shard, CG + Jacobi and CG + the box LowOrderMG against
+   the single system's counts; the z-sweep is also checked at the windows'
+   shapes in phase 3), ``distributed`` and ``restart`` (after phase 9: the
+   cylinder on 4 shards, its apply against the single one, CG + Jacobi, the
+   sharded ``.pvtu``; its checkpoint reloaded on 2 shards, bit for bit),
+   ``distributed_assembled`` (the preconditioners phase's problem on 4
+   shards: the gathered CSR against the single one, Schwarz SGS and ILUT,
+   BlockJacobi, Klu2) and ``karman_distributed`` (after phase 10: its
+   first three BDF2 steps on 4 shards, against the single system's).
 
 Each kernel's launch count is set to 0 just before the path it is counted
 on and read just after it: the z-sweep's const mode on phases 4-5 and then
@@ -143,7 +155,8 @@ wrapper and the stage kernel on their
 phase 6 systems, the per-QP kernel on phases 8-9 (after its comparison
 systems ran), the fused one on the SUM_FACT_PALLAS system; the per-QP
 kernel's lattice layout on phase 11's and phase 12's systems with the
-kernel switched on (one record each).  The
+kernel switched on (one record each); the z-sweep's const row also counts
+the ``box`` phase, the per-QP kernel's the ``distributed`` phase.  The
 second-to-last lines are the kernels' JSON record and the nvidia-smi line;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line.  Run: ``python3 chip_smoke.py`` (one card).
@@ -287,10 +300,12 @@ def _var_diffusion_3d(inp, out):
     ops[3][0, 3] = -k
 
 
-def _build_system(lp, order, n_1d, dtype, device, kernel=_diffusion_3d, assembled=False, hook=None, cond=False):
+def _build_system(lp, order, n_1d, dtype, device, kernel=_diffusion_3d, assembled=False, hook=None, cond=False,
+                  n_shards=0):
     """The bench configuration on an order-``order`` cube of (n_1d - 1)^3 hexes,
     matrix-free or ``assembled`` (``cond``: assembled with ELEMENT_BOUNDARY
-    condensation); ``hook(system)`` runs before the assembly.
+    condensation), on ``n_shards`` shards of a DistributedSystem when given;
+    ``hook(system)`` runs before the assembly.
     The constant kernel takes T = 0 and T = 1 on sides 5 and 6; the variable
     one T = x from a boundary kernel (the same values on the unit cube)."""
     mesh = lp.generate_mesh(lp.make_cube_mesh(np.linspace(0.0, 1.0, n_1d)), order=order)
@@ -302,7 +317,10 @@ def _build_system(lp, order, n_1d, dtype, device, kernel=_diffusion_3d, assemble
         eval_strategy=S.GLOBAL_ASSEMBLY if assembled or cond else S.MATRIX_FREE,
         cond_policy=C.ELEMENT_BOUNDARY if cond else C.NONE,
     )
-    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
+    if n_shards:
+        system = lp.make_distributed_system(mesh, problem, bcs, params, n_shards=n_shards, dtype=dtype, device=device)
+    else:
+        system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
     if hook is not None:
         hook(system)
     kd = lp.wrap_domain_equation_kernel(kernel, lp.KernelParams(3, 7, 4))
@@ -418,19 +436,20 @@ def _ptxas_summary(log: str) -> list:
     return out
 
 
-def _bench_kernel_inputs(lp, seed: int, ne: int = 6, order: int = 6):
+def _bench_kernel_inputs(lp, seed: int, ne: int = 6, order: int = 6, ne_y: int | None = None):
     """Shapes of the z-sweep on a lattice of ne^3 elements of the given order
     (p = 6: 6^3 the bench, 12^3 the var 12^3 box; p = 1: the multigrid's
-    order-1 levels) and random inputs: the constant A of the bench kernel,
-    the nonzero planes of its variable form and both geometries, made with
-    numpy from a seed."""
+    order-1 levels), or of ne (z) x ne_y (y) x 6 (x) elements (a box
+    decomposition's window of the bench), and random inputs: the constant A
+    of the bench kernel, the nonzero planes of its variable form and both
+    geometries, made with numpy from a seed."""
     from l3ster_tpu_torch.algsys.system import _constant_kernel_operators
     from l3ster_tpu_torch.ops.lattice_sumfact import banded_tables
 
     q_order = lp.AssemblyOptions().quadrature_order(order)
     q1 = q_order // 2 + 1
-    S = ne * q1
-    RQ = S * S
+    ny, nx = (ne, ne) if ne_y is None else (ne_y, 6)
+    S, RQ = ne * q1, ny * q1 * nx * q1
     c, n1z = 4, ne * order + 1
     A = _constant_kernel_operators(lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4)), 0.0)
     nz = tuple(tuple(int(v) for v in ix) for ix in np.argwhere(A != 0))  # the var kernel's 15 planes
@@ -523,15 +542,18 @@ def phase_kernels(lp) -> tuple[dict, dict]:
     from l3ster_tpu_torch.ops.zsweep import fused_z_sweep, fused_z_sweep_plain, kernel_occupancy, plane_table
 
     records = {}
-    for var, mode, layout, ne, order in (
-        (False, "diag", "cz", 6, 6), (False, "full", "cz", 6, 6), (True, "full", "cz", 6, 6),
-        (True, "diag", "cz", 6, 6), (True, "full", "zc", 6, 6),
-        (True, "full", "cz", 12, 6),  # the var 12^3 apply's shapes
+    for var, mode, layout, ne, order, ne_y in (
+        (False, "diag", "cz", 6, 6, None), (False, "full", "cz", 6, 6, None), (True, "full", "cz", 6, 6, None),
+        (True, "diag", "cz", 6, 6, None), (True, "full", "zc", 6, 6, None),
+        (True, "full", "cz", 12, 6, None),  # the var 12^3 apply's shapes
         # the multigrid's order-1 levels: the bench's level 1 (19^3 nodes) and
         # the var 12^3 box's level 1 (37^3 nodes)
-        (False, "diag", "cz", 18, 1), (True, "full", "cz", 36, 1),
+        (False, "diag", "cz", 18, 1, None), (True, "full", "cz", 36, 1, None),
+        # the box phase's windows of the bench: 2 and 4 z slabs (3 and 2
+        # element layers), and the (2, 2) pencils' 3 x 3 columns
+        (False, "diag", "cz", 3, 6, 6), (False, "diag", "cz", 2, 6, 6), (False, "diag", "cz", 3, 6, 3),
     ):
-        inp = _bench_kernel_inputs(lp, seed=0, ne=ne, order=order)
+        inp = _bench_kernel_inputs(lp, seed=0, ne=ne, order=order, ne_y=ne_y)
         A, nz = inp["A"], inp["nz"]
         args = {}
         for dt in (torch.float64, torch.float32):
@@ -559,14 +581,14 @@ def phase_kernels(lp) -> tuple[dict, dict]:
         occ = kernel_occupancy(torch.float32, mode == "diag", A_k, K, tabs32, inp["RQ"])
         name = "zsweep_var" if var else "zsweep"
         _say(
-            "kernel_vs_plain", kernel=name, mode=mode, layout=layout, planes=K, ne_z=ne, order=order,
+            "kernel_vs_plain", kernel=name, mode=mode, layout=layout, planes=K, ne_z=ne, ne_y=ne_y or ne, order=order,
             shape=[inp["c"], inp["n1z"], inp["S"], inp["RQ"]], f64_tol=F64_KERNEL_TOL,
             f32_tol=F32_KERNEL_TOL, bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
             share_of_bound=bound_ms / res["ms"], launch_shape=occ, **res,
         )
         if not res["ok"]:
             raise SystemExit(
-                f"chip_smoke: {name} disagrees with its plain version ({mode} {layout} ne_z={ne} p={order})"
+                f"chip_smoke: {name} disagrees with its plain version ({mode} {layout} ne_z={ne} ne_y={ne_y} p={order})"
             )
         if name not in records:  # the first mode of each is its path's: const diag, var full
             records[name] = _zsweep_record(name, "l3ster_tpu/ops/pallas_zsweep2.py:402", res, bound_ms, bound_by)
@@ -919,12 +941,15 @@ def _cylinder_mesh(lp, order: int, small: bool):
     return lp.generate_mesh(lp.make_cylinder_in_channel_3d(**kw), order=order)
 
 
-def _build_cylinder(lp, mesh, strategy, dtype, device):
+def _build_cylinder(lp, mesh, strategy, dtype, device, n_shards=0):
     problem = lp.ProblemDefinition(4, [0])
     bcs = lp.BCDefinition(problem)
     bcs.define_dirichlet([3, 4, 5], [0])
     params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
-    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
+    if n_shards:
+        system = lp.make_distributed_system(mesh, problem, bcs, params, n_shards=n_shards, dtype=dtype, device=device)
+    else:
+        system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
     kd = lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4))
     kn = lp.wrap_boundary_equation_kernel(_adiabatic_3d, lp.KernelParams(3, 1, 4))
     kdir = lp.wrap_boundary_residual_kernel(_t_equals_x, lp.KernelParams(3, 1))
@@ -1192,7 +1217,7 @@ def phase_unstructured_main_path(lp) -> dict:
     return {"system": system, "mesh": mesh}
 
 
-def phase_unstructured_solve(lp, state: dict) -> None:
+def phase_unstructured_solve(lp, state: dict) -> int:
     import torch
 
     from l3ster_tpu_torch.ops import qp
@@ -1221,6 +1246,7 @@ def phase_unstructured_solve(lp, state: dict) -> None:
     )
     if not r.converged:
         raise SystemExit("chip_smoke: cylinder CG + Jacobi did not reach its tolerance")
+    return r.num_iters
 
 # ----------------------------------------------------- assembled system and multigrid
 
@@ -1867,6 +1893,7 @@ def phase_mg_solve(lp, state: dict, jacobi_iters: int, phase: str, precond=None)
     )
     if not ok:
         raise SystemExit(f"chip_smoke: CG + LowOrderMG failed its checks ({phase})")
+    state["mg_iterations"] = r.num_iters
     return path_launches
 
 
@@ -2497,6 +2524,7 @@ KARMAN_JACOBI_ITERS = 20000  # the CG + Jacobi comparison solve
 # of that order times the preconditioned operator's amplification; three H100
 # runs read 1.3e-5 to 5.6e-5, and the bound is 4.5 times the largest (PERF.md §2)
 KARMAN_F32_TOL = 2.5e-4
+KARMAN_DIST_STEPS, KARMAN_DIST_SHARDS = 3, 4  # the distributed stepping: 3 BDF2 steps on 4 shards
 DOMAIN, BOTTOM, TOP, INLET, OUTLET, CYLINDER = 0, 1, 2, 3, 4, 5
 
 
@@ -2510,9 +2538,10 @@ def karman_mesh_kw(refine: int = 2) -> dict:
     )
 
 
-def karman_setup(lp, dtype, device, mesh_kw=None, order: int = KARMAN_ORDER, mesh=None) -> dict:
-    """The Strouhal study's matrix-free system, kernels and solution manager
-    (six slots: u, v at two time levels, vorticity, pressure)."""
+def karman_setup(lp, dtype, device, mesh_kw=None, order: int = KARMAN_ORDER, mesh=None, n_shards: int = 0) -> dict:
+    """The Strouhal study's matrix-free system (on ``n_shards`` shards of a
+    DistributedSystem when given), kernels and solution manager (six slots:
+    u, v at two time levels, vorticity, pressure)."""
     from l3ster_tpu_torch.models.kernels import flow_rate_bc, navier_stokes_outlet_bc, navier_stokes_uvop_2d
 
     if mesh is None:
@@ -2521,7 +2550,10 @@ def karman_setup(lp, dtype, device, mesh_kw=None, order: int = KARMAN_ORDER, mes
     bcs = lp.BCDefinition(problem)
     bcs.define_dirichlet([INLET, BOTTOM, TOP, CYLINDER], [0, 1])
     params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
-    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
+    if n_shards:
+        system = lp.make_distributed_system(mesh, problem, bcs, params, n_shards=n_shards, dtype=dtype, device=device)
+    else:
+        system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
     nu = 1.0 / KARMAN_RE
     y_b, y_t = KARMAN_Y
 
@@ -2617,7 +2649,7 @@ def _sync(device) -> None:
 
 
 def phase_karman(lp, device: str = "cuda", mesh_kw=None, order: int = KARMAN_ORDER, n_settle: int = 3,
-                 n_timed: int = 10, jacobi_step: int = 5) -> None:
+                 n_timed: int = 10, jacobi_step: int = 5) -> dict:
     """The Karman 2D transient stack at the reference's Strouhal validation
     size (80,880 dofs, f32, matrix-free, AUTO -> the field-coupled ``dense``
     kind): 8 Picard solves with CG + a PMultigrid(lag="auto") of their own,
@@ -2629,7 +2661,10 @@ def phase_karman(lp, device: str = "cuda", mesh_kw=None, order: int = KARMAN_ORD
     the same start.  The first BDF2 step is repeated in f64 on the same
     device from the same fields (to a relative residual of 1e-10).  Fails
     unless every solve converged without hitting its cap, all fields are finite, PMultigrid takes at most a
-    quarter of Jacobi's iterations, and f32 agrees with f64 to KARMAN_F32_TOL."""
+    quarter of Jacobi's iterations, and f32 agrees with f64 to KARMAN_F32_TOL.
+    Returns the post-Picard state (mesh, fields, solution) with the first
+    ``KARMAN_DIST_STEPS`` steps' iterations and the fields after them, for
+    ``phase_karman_distributed``."""
     import torch
 
     from l3ster_tpu_torch.solve.krylov import _precond_parts
@@ -2671,6 +2706,8 @@ def phase_karman(lp, device: str = "cuda", mesh_kw=None, order: int = KARMAN_ORD
                           capped=r.capped, refreshed=bool(refreshed)))
         if k == 0:
             v32 = man.values[:, st["vel1"] + [4, 5]].clone()
+        if k == KARMAN_DIST_STEPS - 1:
+            fields_after = man.values.clone()
         if k == n_settle + jacobi_step - 1:
             # the same operator and start with CG + Jacobi; the trajectory keeps PMultigrid's x
             b = system.effective_rhs()
@@ -2730,6 +2767,361 @@ def phase_karman(lp, device: str = "cuda", mesh_kw=None, order: int = KARMAN_ORD
     )
     if not ok:
         raise SystemExit("chip_smoke: the Karman stepping failed its checks")
+    return dict(mesh=st["mesh"], fields0=fields0, x0=x0, order=order, fields_after=fields_after,
+                iterations=[s["iterations"] for s in steps[:KARMAN_DIST_STEPS]])
+
+
+# ------------------------------------------------------------------ distribution
+
+DIST_SHARDS = 4  # the distributed phases' shards, all on the one card
+DIST_CG_SLACK = 0.02  # f32: the distributed dots sum in another order; CG counts may move by 2%
+BOX_MG_SLACK = 2  # CG + box LowOrderMG against the single system's (tests/test_box.py:285-301)
+BOX_CASES = ((2, None), (4, None), (4, (2, 2)))  # z slabs and a pencil grid of the bench
+KARMAN_DIST_TOL = 2.5e-4  # f32 fields after the distributed steps against the single system's
+
+
+def _off_owned_zero(dist, v) -> bool:
+    return bool((v[dist._owned_mask == 0] == 0).all())
+
+
+def phase_distributed(lp, state: dict, single_iters: int, device: str = "cuda", n_shards: int = DIST_SHARDS,
+                      out_dir: str = "results") -> tuple[int, dict]:
+    """The cylinder problem of phases 8-9 on a DistributedSystem of
+    ``n_shards`` shards on the card (f32; AUTO: ``dense_const`` buckets with
+    the per-QP kernel, ``direct`` faces): a small f64 system on the card
+    against the CPU path; the apply against the single system's; apply ms,
+    device-busy ms, idle share, the halo exchange's ms; CG + Jacobi from zero
+    within DIST_CG_SLACK of the single system's iterations; the sharded
+    ``.pvtu`` export of T.  The per-QP kernel's count is set to 0 just before
+    the distributed system is built.  Returns (its launches, the system and
+    its solution manager)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from l3ster_tpu_torch.ops import qp
+
+    small = _cylinder_mesh(lp, 2, small=True)
+    sg = _build_cylinder(lp, small, "AUTO", torch.float64, device, n_shards=n_shards)
+    sc = _build_cylinder(lp, small, "AUTO", torch.float64, "cpu", n_shards=n_shards)
+    xs = sc._to_stacked(torch.as_tensor(np.random.default_rng(5).normal(size=(sc.n_dofs, 1))))
+    fc, cc = sc.operator_parts()
+    fg, cg = sg.operator_parts()
+    small_err = _rel(fg(xs.to(device), *cg), fc(xs, *cc))
+    del sg, sc
+
+    single, mesh = state["system"], state["mesh"]
+    xg = torch.as_tensor(np.random.default_rng(6).normal(size=(single.n_dofs, 1)), dtype=single.dtype, device=device)
+    fs = single.operator()
+    y_single = fs(xg)
+    single_ms = _cuda_ms(lambda: fs(xg))
+    single_busy_ms, _ = _profile_apply(fs, xg)
+
+    qp.launch_count = 0  # the distributed main path starts here
+    _sync(device)
+    t0 = time.perf_counter()
+    dist = _build_cylinder(lp, mesh, "AUTO", torch.float32, device, n_shards=n_shards)
+    kinds = [d[0] for _, d, _ in dist._operators()]
+    fn, consts = dist.operator_parts()
+    x_st = dist._to_stacked(xg)
+    y_st = fn(x_st, *consts)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    apply_err = _rel(dist._to_global(y_st), y_single)
+    ghosts_zero = _off_owned_zero(dist, y_st)
+    apply_ms = _cuda_ms(lambda: fn(x_st, *consts))
+    busy_ms, top = _profile_apply(lambda v: fn(v, *consts), x_st)
+    work = x_st.clone()
+    halo_ms = _cuda_ms(lambda: dist._export(dist._import(work)))
+    dist.set_solution_vector(torch.zeros_like(dist.x))
+    _sync(device)
+    t0 = time.perf_counter()
+    r = dist.solve(lp.CG(lp.IterSolverOpts(tol=CYL_CG_TOL, max_iters=CYL_CG_MAX_ITERS), precond=lp.Jacobi()))
+    _sync(device)
+    solve_s = time.perf_counter() - t0
+    launches = qp.launch_count
+    X = dist._solution_global()[:, 0].reshape(-1, 4)
+    err_T = float(np.abs(X[:, 0] - mesh.node_coords[:, 0]).max())
+    man = lp.SolutionManager(mesh, 4, device=device)
+    dist.update_solution([0, 1, 2, 3], man, [0, 1, 2, 3])
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        t0 = time.perf_counter()
+        lp.PvtuExporter(mesh).export_solution_sharded(
+            lp.ExportDefinition(os.path.join(tmp, "cylinder.pvtu")).define_field("T", [0]), man, partition=dist
+        )
+        export_s = time.perf_counter() - t0
+        pieces = sorted(f for f in os.listdir(tmp) if f.endswith(".vtu"))
+        export_bytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+    iters_ok = abs(r.num_iters - single_iters) <= DIST_CG_SLACK * single_iters
+    ok = (
+        kinds == ["dense_const"] + ["direct"] * 4 and small_err < F64_APPLY_TOL and apply_err < F32_APPLY_TOL
+        and ghosts_zero and r.converged and iters_ok and _off_owned_zero(dist, dist.x)
+        and len(pieces) == n_shards and launches > 0
+    )
+    _say(
+        "distributed", mesh="make_cylinder_in_channel_3d()", order=CYL_ORDER, n_dofs=dist.n_dofs,
+        n_shards=n_shards, n_loc1=dist.n_loc1, halo_width=dist._max_send, neighbor_offsets=dist._n_neighbors,
+        owned_per_shard=[len(o) for o in dist._owned], ghost_per_shard=[len(g) for g in dist._ghost],
+        kinds=kinds, dtype="float32", setup_s=setup_s, small_f64_rel_err_vs_cpu=small_err,
+        small_tol=F64_APPLY_TOL, rel_err_vs_single_apply=apply_err, tol=F32_APPLY_TOL,
+        off_owned_slots_zero=ghosts_zero, apply_ms=apply_ms, single_apply_ms=single_ms,
+        device_busy_ms=busy_ms, single_device_busy_ms=single_busy_ms, device_idle_share=1.0 - busy_ms / apply_ms,
+        top_device_ms_per_apply=top, halo_exchange_ms=halo_ms, iterations=r.num_iters,
+        single_iterations=single_iters, slack=DIST_CG_SLACK, converged=r.converged,
+        achieved_rel_residual=r.tol, true_rel_residual=_true_residual(dist), solve_s=solve_s,
+        ms_per_iteration=solve_s * 1e3 / max(r.num_iters, 1), max_nodal_err_T_minus_x=err_T,
+        pvtu_pieces=len(pieces), pvtu_bytes=export_bytes, export_s=export_s, qp_launches=launches, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the distributed phase failed its checks")
+    return launches, {"system": dist, "manager": man}
+
+
+def phase_restart(lp, dist_state: dict, device: str = "cuda", n_shards: int = 2, out_dir: str = "results") -> None:
+    """A checkpoint of the distributed phase's solution (``save``), loaded back
+    (``load``) and set on a DistributedSystem of ``n_shards`` shards built on
+    the restored mesh: its global solution must equal the saved one exactly."""
+    import os
+    import tempfile
+
+    import torch
+
+    dist, man = dist_state["system"], dist_state["manager"]
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        t0 = time.perf_counter()
+        path = lp.save(os.path.join(tmp, "cylinder"), dist.mesh, man, field_names=["T", "qx", "qy", "qz"])
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        mesh2, man2 = lp.load(path, device=device)
+        load_s = time.perf_counter() - t0
+    problem = lp.ProblemDefinition(4, [0])
+    bcs = lp.BCDefinition(problem)
+    bcs.define_dirichlet([3, 4, 5], [0])
+    params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
+    t0 = time.perf_counter()
+    s2 = lp.make_distributed_system(mesh2, problem, bcs, params, n_shards=n_shards, dtype=dist.dtype, device=device)
+    build_s = time.perf_counter() - t0
+    nd = torch.as_tensor(s2.dofmap.node_dof, device=device)
+    has = nd >= 0
+    xg = torch.zeros((s2.n_dofs, 1), dtype=torch.float64, device=device)
+    xg[nd[has], 0] = man2.values[:, :4][has]
+    s2._set_solution_global(xg)
+    exact = bool(np.array_equal(s2._solution_global(), dist._solution_global()))
+    ok = exact and s2.n_dofs == dist.n_dofs and _off_owned_zero(s2, s2.x)
+    _say(
+        "restart", saved_shards=dist.n_shards, loaded_shards=n_shards, n_dofs=s2.n_dofs, checkpoint_bytes=ckpt_bytes,
+        save_s=save_s, load_s=load_s, build_s=build_s, solution_equal=exact, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the restart phase failed its checks")
+
+
+def phase_distributed_assembled(lp, device: str = "cuda", order: int = PRE_ORDER, n_1d: int = PRE_N1D,
+                                n_shards: int = DIST_SHARDS) -> None:
+    """The preconditioners phase's problem (condensed at p = 4 on 4^3 hexes)
+    as a GLOBAL_ASSEMBLY DistributedSystem of ``n_shards`` shards: its
+    gathered CSR against the single system's (f64, pattern exactly, values
+    within 1e-12), then in f32 CG with Jacobi, SGS (additive Schwarz,
+    overlap 1) and BlockJacobi, GMRES with ILUT, and Klu2 on the gathered
+    matrix, each from zero (iterations, setup and solve s, true residual;
+    beside Jacobi's and BlockJacobi's the single system's iterations, which
+    they must match within DIST_CG_SLACK: SGS and ILUT become one-level
+    Schwarz, the preconditioners phase has their single-system counts) and
+    the nodal T = x error with the recovered interiors.  Fails unless each
+    converges and the CSRs agree."""
+    import scipy.sparse as sp
+    import torch
+
+    t_phase = time.perf_counter()
+    _, s64 = _build_system(lp, order, n_1d, torch.float64, device, cond=True)
+    _, d64 = _build_system(lp, order, n_1d, torch.float64, device, cond=True, n_shards=n_shards)
+    d1, i1, p1, n1 = s64.eliminated_csr()
+    A1 = sp.csr_matrix((d1.cpu().numpy(), i1, p1), shape=(n1, n1))
+    t0 = time.perf_counter()
+    dd, di, dp, dn = d64.gathered_csr()
+    gather_s = time.perf_counter() - t0
+    pattern_equal = bool(np.array_equal(dp, p1) and np.array_equal(di, i1))
+    csr_err = float(np.abs(dd - A1.data).max() / np.abs(A1.data).max()) if pattern_equal else float("inf")
+    del s64, d64
+
+    _, single = _build_system(lp, order, n_1d, torch.float32, device, cond=True)
+    mesh, dist = _build_system(lp, order, n_1d, torch.float32, device, cond=True, n_shards=n_shards)
+    opts = lp.IterSolverOpts(tol=CG_TOL, max_iters=CG_MAX_ITERS)
+    runs = (
+        ("CG", "Jacobi", lambda: lp.Jacobi()), ("CG", "SGS(overlap=1)", lambda: lp.SGS(overlap=1)),
+        ("CG", "BlockJacobi", lambda: lp.BlockJacobi()),
+        ("GMRES", "ILUT", lambda: lp.ILUT()),
+    )
+    out = []
+    for solver_name, name, make in runs:
+        cls = lp.CG if solver_name == "CG" else lp.Gmres
+        r, setup_s, solve_s = _solve_from_zero(dist, cls(opts, precond=make()), device)
+        single_its = None
+        if name in ("Jacobi", "BlockJacobi"):
+            single_its = _solve_from_zero(single, cls(opts, precond=make()), device)[0].num_iters
+        rec = dict(solver=solver_name, precond=name, iterations=r.num_iters, single_iterations=single_its,
+                   converged=r.converged, capped=r.capped, achieved_rel_residual=r.tol,
+                   true_rel_residual=_true_residual(dist), off_owned_slots_zero=_off_owned_zero(dist, dist.x),
+                   setup_s=setup_s, solve_s=solve_s)
+        out.append(rec)
+        _say("distributed_assembled_solver", n_shards=n_shards, **rec)
+    dist.set_solution_vector(torch.zeros_like(dist.x))
+    _sync(device)
+    t0 = time.perf_counter()
+    rk = dist.solve(lp.Klu2())
+    klu_s = time.perf_counter() - t0
+    man = lp.SolutionManager(mesh, 4, device=device)
+    dist.update_solution([0, 1, 2, 3], man, [0, 1, 2, 3])
+    err_T = float((man.values[:, 0].cpu() - torch.as_tensor(mesh.node_coords[:, 0])).abs().max())
+    ok = (
+        pattern_equal and csr_err < 1e-12 and all(o["converged"] and not o["capped"] for o in out)
+        and all(o["off_owned_slots_zero"] for o in out) and rk.tol < 1e-6 and err_T < COND_NODAL_TOL
+        and all(abs(o["iterations"] - o["single_iterations"]) <= DIST_CG_SLACK * o["single_iterations"]
+                for o in out if o["single_iterations"] is not None)
+    )
+    _say(
+        "distributed_assembled", order=order, n_elements=(n_1d - 1) ** 3, n_dofs=dist.n_dofs, n_shards=n_shards,
+        n_loc1=dist.n_loc1, condensed=True, gathered_csr_pattern_equal=pattern_equal, gathered_csr_rel_err=csr_err,
+        gather_s=gather_s, iterations={f"{o['solver']}+{o['precond']}": o["iterations"] for o in out},
+        single_iterations={f"{o['solver']}+{o['precond']}": o["single_iterations"] for o in out
+                           if o["single_iterations"] is not None},
+        klu2_rel_residual=rk.tol, klu2_s=klu_s, max_nodal_err_T_minus_x=err_T, nodal_tol=COND_NODAL_TOL,
+        phase_s=time.perf_counter() - t_phase, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the distributed assembled phase failed its checks")
+
+
+def phase_karman_distributed(lp, kst: dict, device: str = "cuda", n_shards: int = KARMAN_DIST_SHARDS) -> None:
+    """The Karman phase's first KARMAN_DIST_STEPS BDF2 steps again on a
+    DistributedSystem of ``n_shards`` shards, from the same post-Picard
+    fields and solution, with CG + PMultigrid(lag="auto") (distributed: the
+    restriction summed over shards, the coarse solve on the whole vector):
+    per-step iterations within one of the single system's, and the fields
+    after the steps within KARMAN_DIST_TOL of the single system's (largest
+    difference over the largest single-system value)."""
+    import torch
+
+    t0 = time.perf_counter()
+    st = karman_setup(lp, torch.float32, device, mesh=kst["mesh"], order=kst["order"], n_shards=n_shards)
+    system, man = st["system"], st["manager"]
+    man.values = kst["fields0"].clone()
+    system._set_solution_global(kst["x0"])
+    setup_s = time.perf_counter() - t0
+    pmg = lp.PMultigrid(lag="auto")
+    solver = karman_step_solver(lp, pmg)
+    steps = []
+    for k in range(KARMAN_DIST_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        karman_predict(st)
+        r = system.solve(solver)
+        karman_finish_step(st)
+        _sync(device)
+        steps.append(dict(step=k + 1, s=time.perf_counter() - t0, iterations=r.num_iters, converged=r.converged,
+                          capped=r.capped))
+    ref = kst["fields_after"]
+    field_err = float((man.values - ref).abs().max() / ref.abs().max())
+    its = [s["iterations"] for s in steps]
+    ok = (
+        all(s["converged"] and not s["capped"] for s in steps)
+        and all(abs(a - b) <= 1 for a, b in zip(its, kst["iterations"]))
+        and field_err <= KARMAN_DIST_TOL and bool(torch.isfinite(man.values).all())
+        and _off_owned_zero(system, system.x)
+    )
+    _say(
+        "karman_distributed", n_dofs=system.n_dofs, n_shards=n_shards, n_loc1=system.n_loc1,
+        halo_width=system._max_send, kinds=[d[0] for _, d, _ in system._operators()], dtype="float32",
+        setup_s=setup_s, steps=steps, iterations=its, single_iterations=kst["iterations"],
+        coarse_dofs=system._pmg_static_cache[pmg]["s1"].n_dofs, fields_rel_err_vs_single=field_err,
+        tol=KARMAN_DIST_TOL, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the distributed Karman stepping failed its checks")
+
+
+def phase_box(lp, state: dict, jacobi_iters: int, device: str = "cuda", cases=BOX_CASES) -> int:
+    """The bench system (f32) through ``box_parallelize`` for each (shards,
+    grid) of ``cases``: the box apply against the single system's apply,
+    apply ms and device-busy ms beside the single apply's, z-sweep launches
+    per apply (one per shard), the plane exchanges' ms (import and export),
+    then CG + Jacobi within DIST_CG_SLACK of the single system's iterations
+    and CG + the box LowOrderMG within BOX_MG_SLACK of the single system's
+    (``state["mg_iterations"]``), each from zero, with the nodal T = x error.
+    The z-sweep's count is set to 0 just before the first box is built;
+    returns its launches."""
+    import torch
+
+    from l3ster_tpu_torch.ops import zsweep
+
+    single, mesh = state["system"], state["mesh"]
+    xg = torch.as_tensor(np.random.default_rng(8).normal(size=(single.n_dofs, 1)), dtype=single.dtype, device=device)
+    fs = single.operator()
+    y_single = fs(xg)
+    single_ms = _cuda_ms(lambda: fs(xg))
+    single_busy_ms, _ = _profile_apply(fs, xg)
+    mg_iters = state["mg_iterations"]
+    out = []
+    zsweep.launch_count = 0  # the box path starts here
+    for n_shards, grid in cases:
+        _sync(device)
+        t0 = time.perf_counter()
+        box = lp.box_parallelize(single, n_shards=n_shards, grid=grid)
+        setup_s = time.perf_counter() - t0
+        fn = box.operator()
+        x_st = box._to_slabs(xg)
+        before = zsweep.launch_count
+        y = fn(x_st)
+        _sync(device)
+        per_apply = zsweep.launch_count - before
+        err = _rel(box._from_slabs(y), y_single)
+        ghosts_zero = bool((y[box._own_st == 0] == 0).all())
+        apply_ms = _cuda_ms(lambda: fn(x_st))
+        busy_ms, top = _profile_apply(fn, x_st)
+        nz, ny, nx = box._n1_loc[2], box._n1_loc[1], box._n1_loc[0]
+        x5 = x_st.reshape(n_shards, nz, ny, nx * box._n_unk, 1).clone()
+        y5 = x5.clone()
+        import_ms = _cuda_ms(lambda: box._import_halo(x5))
+        export_ms = _cuda_ms(lambda: box._export_halo(y5))
+        runs = {}
+        for name, make in (("Jacobi", lambda: lp.Jacobi()), ("LowOrderMG", lambda: lp.LowOrderMG())):
+            single.set_solution_vector(torch.zeros_like(single.x))
+            _sync(device)
+            t0 = time.perf_counter()
+            r = box.solve(lp.CG(lp.IterSolverOpts(tol=CG_TOL, max_iters=CG_MAX_ITERS), precond=make()))
+            _sync(device)
+            X = single.x[:, 0].reshape(-1, 4).double().cpu().numpy()
+            runs[name] = dict(iterations=r.num_iters, converged=r.converged, solve_s=time.perf_counter() - t0,
+                              true_rel_residual=_true_residual(single),
+                              max_nodal_err_T_minus_x=float(np.abs(X[:, 0] - mesh.node_coords[:, 0]).max()))
+        rec = dict(
+            n_shards=n_shards, grid=list(box.grid), windows_z=box._nez_real, windows_y=box._ney_real,
+            n1_window=list(box._n1_loc), setup_s=setup_s, rel_err_vs_single_apply=err,
+            off_owned_slots_zero=ghosts_zero, apply_ms=apply_ms, single_apply_ms=single_ms,
+            device_busy_ms=busy_ms, single_device_busy_ms=single_busy_ms,
+            device_idle_share=1.0 - busy_ms / apply_ms, busy_vs_single=busy_ms / single_busy_ms,
+            top_device_ms_per_apply=top, zsweep_launches_per_apply=per_apply, halo_import_ms=import_ms,
+            halo_export_ms=export_ms, jacobi=runs["Jacobi"], lowordermg=runs["LowOrderMG"],
+        )
+        rec["ok"] = (
+            err < F32_APPLY_TOL and ghosts_zero and per_apply == n_shards
+            and all(v["converged"] for v in runs.values())
+            and abs(runs["Jacobi"]["iterations"] - jacobi_iters) <= DIST_CG_SLACK * jacobi_iters
+            and abs(runs["LowOrderMG"]["iterations"] - mg_iters) <= BOX_MG_SLACK
+        )
+        out.append(rec)
+        _say("box_case", single_jacobi_iterations=jacobi_iters, single_mg_iterations=mg_iters, **rec)
+        del box, fn, x5, y5
+    launches = zsweep.launch_count
+    ok = all(o["ok"] for o in out) and launches > 0
+    _say("box", n_dofs=single.n_dofs, cases=len(out), zsweep_launches=launches, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: the box phase failed its checks")
+    return launches
 
 
 def main() -> int:
@@ -2756,6 +3148,7 @@ def main() -> int:
     record["launches"] += phase_mg_solve(lp, state, jacobi_iters, "mg_solve")  # and its multigrid solve
     # the matrix-free bench solution (CG + LowOrderMG), for the condensed phase
     bench_nodal = state["system"].x[:, 0].reshape(-1, 4).double().cpu().numpy()
+    record["launches"] += phase_box(lp, state, jacobi_iters)  # the bench through box_parallelize
     launches = phase_switches(lp, state)  # phase 6
     v1_record["launches"] = launches["zsweep_v1"]
     stage_record["launches"] = launches["stage_matmul"]
@@ -2777,18 +3170,26 @@ def main() -> int:
     phase_condensed(lp, bench_nodal)
     phase_preconditioners(lp)
     state = phase_unstructured_main_path(lp)
-    phase_unstructured_solve(lp, state)
+    cylinder_iters = phase_unstructured_solve(lp, state)
     records[0]["launches"] = qp.launch_count  # unstructured main path: phases 8 and 9
     records[1]["launches"] = sumfact_fused.launch_count
+    dist_launches, dist_state = phase_distributed(lp, state, cylinder_iters)
+    records[0]["launches"] += dist_launches  # and the distributed cylinder
     del state
     torch.cuda.empty_cache()
+    phase_restart(lp, dist_state)
+    del dist_state
+    torch.cuda.empty_cache()
+    phase_distributed_assembled(lp)
     qp_lattice["2d"]["launches"] = phase_lattice_2d(lp)
     torch.cuda.empty_cache()
     phase_periodic(lp)
     phase_gmsh(lp)
     phase_inverse(lp)
     torch.cuda.empty_cache()
-    phase_karman(lp)
+    karman_state = phase_karman(lp)
+    phase_karman_distributed(lp, karman_state)
+    del karman_state
     kernels = [record, var_record, v1_record, stage_record] + records + [qp_lattice["2d"], qp_lattice["bench"]]
     for rec in kernels:
         if rec["launches"] <= 0:

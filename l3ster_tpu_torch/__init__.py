@@ -46,6 +46,8 @@ from .mesh.generators import (
 from .mesh.gmsh import read_gmsh
 from .mesh.split import split_domain
 from .mesh.traits import ElementType
+from .parallel.box import BoxSystem, box_parallelize
+from .parallel.distributed import DistributedSystem, make_distributed_system
 from .post.integral import compute_integral, compute_norm_l2
 from .post.native_io import Loader, load, save
 from .post.solution import FieldAccess, SolutionManager
@@ -58,6 +60,7 @@ from .solve.lowordermg import LowOrderMG
 from .solve.pmg import PMultigrid
 from .solve.precond import ILU0, ILUT, SGS, BlockJacobi, Chebyshev, Identity, Jacobi, Richardson
 from . import models  # models.kernels: the canonical PDE kernels
+from . import parallel, utils  # parallel.{partition,distributed,box}, utils.profiling
 
 __version__ = "0.1.0"
 

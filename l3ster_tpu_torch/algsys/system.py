@@ -226,8 +226,17 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def _last_solve_suffix(system) -> str:
+    """"; last solve: ..." for a system's ``describe``, or "" before any solve."""
+    r = getattr(system, "_last_solve_result", None)
+    if r is None:
+        return ""
+    state = "converged" if r.converged else ("CAPPED (max_iters)" if r.capped else "NOT converged")
+    return f"; last solve: {r.num_iters} iters, res {r.tol:.2e}, {state}"
+
+
 class _SystemBase:
-    """State and behaviour shared by the assembled and matrix-free systems."""
+    """State and behaviour shared by the assembled, matrix-free and distributed systems."""
 
     def __init__(
         self,
@@ -408,6 +417,184 @@ class _SystemBase:
         """(A, f) of a contribution's kernel at the QPs of its elements ``sel``."""
         fv, fd = self._fields(c, geom, sel)
         return eval_equation_kernel(c.kernel, geom, fv, fd, c.time)
+
+    # -- gather-family operator data and local assembly (the matrix-free,
+    # assembled and distributed systems) -------------------------------------
+
+    @staticmethod
+    def _use_sumfact(c: _Contribution) -> bool:
+        """Sum-factorized rhs/diagonal (and apply, on the sum-factorized kinds) for
+        volume Quad/Hex contributions: forced by SUM_FACT / SUM_FACT_PALLAS, else
+        at p >= 2 unless DIRECT is asked for; boundaries are direct."""
+        from ..ops.sumfact import supports_sumfact
+
+        strat = c.options.eval_strategy
+        if c.tables.side is not None or strat == LocalEvalStrategy.DIRECT:
+            return False
+        if strat in (LocalEvalStrategy.SUM_FACT, LocalEvalStrategy.SUM_FACT_PALLAS):
+            if not supports_sumfact(c.tables.element_type):
+                raise ValueError("sum factorization requires tensor-product Quad/Hex elements")
+            return True
+        return supports_sumfact(c.tables.element_type) and c.tables.order >= 2
+
+    @staticmethod
+    def _use_dense(c: _Contribution) -> bool:
+        """Dense basis-matrix apply: DENSE_MXU, or AUTO at p >= 2 (the
+        reference's AUTO on its accelerator, taken here on every device)."""
+        strat = c.options.eval_strategy
+        if c.tables.side is not None:
+            return False
+        return strat == LocalEvalStrategy.DENSE_MXU or (
+            strat == LocalEvalStrategy.AUTO and c.tables.order >= 2
+        )
+
+    @staticmethod
+    def _const_operators(c: _Contribution):
+        """The proven-constant A of a field-free volume kernel, else None (a
+        kernel that reads fields takes the variable-coefficient kinds, as in
+        the reference)."""
+        if c.field_access is not None:
+            return None
+        return _constant_kernel_operators(c.kernel, c.time)
+
+    def _geometry_packed(self, c: _Contribution, with_operators: bool = False):
+        """(Ji_t (dim, dim, EQ), w_t (EQ,)) in block element-major order and in
+        float64 whatever the system dtype: the separable-geometry check needs
+        exact zeros and per-axis constants that float32 rounding would break.
+        Built in element chunks so the (E, Q, dim, dim) intermediates stay bounded.
+
+        ``with_operators`` also evaluates the kernel's A at the same points and
+        appends (nz, A_em): the (d, i, u) indices of A's planes that are nonzero
+        somewhere (``np.argwhere`` order, as the reference finds them, in float64;
+        ``((0, 0, 0),)`` when A is zero) and those planes as A_em (EQ, K) in the
+        system dtype.  Only the planes nonzero in a chunk are kept from it."""
+        E, Q = c.verts.shape[0], c.tables.n_qp
+        chunk = max(1, (1 << (19 if with_operators else 22)) // max(Q, 1))
+        dim = c.tables.dim
+        ji, w, pieces, amax = [], [], [], None
+        for s in range(0, E, chunk):
+            sel = slice(s, s + chunk)
+            verts = self._tensor(c.verts[sel], torch.float64)
+            g = element_geometry(
+                c.tables, verts, with_phys_ders=with_operators and c.field_access is not None
+            )
+            ji.append(g.jac_inv.reshape(-1, dim, dim))
+            w.append(g.weights.reshape(-1))
+            if with_operators:
+                A, _ = self._eval_operators(c, g, sel)
+                shape = A.shape[2:]
+                A = A.reshape(A.shape[0] * A.shape[1], -1)
+                m = A.abs().amax(dim=0).cpu()
+                amax = m if amax is None else torch.maximum(amax, m)
+                sel = torch.nonzero(m > 0).flatten()
+                pieces.append((sel.tolist(), A[:, sel.to(A.device)].to(self.dtype)))
+        Ji_t, w_t = torch.cat(ji).permute(1, 2, 0), torch.cat(w)
+        if not with_operators:
+            return Ji_t, w_t
+        mx = amax.reshape(shape).numpy()
+        nz = tuple(tuple(int(v) for v in ix) for ix in np.argwhere(mx > 0.0)) or ((0, 0, 0),)
+        col = {int(np.ravel_multi_index(ix, mx.shape)): k for k, ix in enumerate(nz)}
+        A_em = self._zeros((w_t.shape[0], len(nz)))
+        off = 0
+        for sel, vals in pieces:
+            A_em[off : off + vals.shape[0], [col[f] for f in sel]] = vals
+            off += vals.shape[0]
+        return Ji_t, w_t, nz, A_em
+
+    def _packed_operators(self, c: _Contribution):
+        """(A_t (dim+1, n_eq, n_unk, EQ), Ji_t (dim, dim, EQ), w_t (EQ,)) of a
+        variable-coefficient volume contribution: the reference's per-epoch
+        value pass (``_op_value_builder``), in the system dtype, element-major,
+        built in element chunks."""
+        from .local import pack_sumfact_operator
+
+        E, Q = c.verts.shape[0], c.tables.n_qp
+        chunk = max(1, (1 << 19) // max(Q, 1))
+        parts = []
+        for s in range(0, E, chunk):
+            sel = slice(s, s + chunk)
+            geom = element_geometry(
+                c.tables, self._tensor(c.verts[sel]), with_phys_ders=c.field_access is not None
+            )
+            A, _ = self._eval_operators(c, geom, sel)
+            parts.append(pack_sumfact_operator(A, geom, c.tables.dim))
+        return tuple(torch.cat([p[i] for p in parts], dim=-1).contiguous() for i in range(3))
+
+    def _local_apply(self, c: _Contribution, d, x_loc: torch.Tensor) -> torch.Tensor:
+        """y_loc (E, n_sel, n_unk) of one gather-family contribution."""
+        dim, order = c.tables.dim, c.tables.order
+        q_order = c.options.quadrature_order(order)
+        if d[0] == "dense_const":
+            from .local import local_apply_dense_const
+
+            return local_apply_dense_const(d[1], d[2], d[3], d[4], dim, x_loc)
+        if d[0] == "dense":
+            from .local import local_apply_dense_packed
+
+            return local_apply_dense_packed(d[1], d[2], d[3], d[4], dim, x_loc)
+        if d[0] == "sumfact":
+            from .local import local_apply_sumfact_packed
+
+            return local_apply_sumfact_packed(d[1], d[2], d[3], order, q_order, dim, x_loc)
+        if d[0] == "sumfact_const":
+            from .local import local_apply_sumfact_const
+
+            return local_apply_sumfact_const(d[1], d[2], d[3], x_loc.shape[0], order, q_order, dim, x_loc)
+        if d[0] == "pallas":
+            from ..ops.sumfact_fused import sumfact_const_apply
+
+            y = sumfact_const_apply(d[1], d[2], d[3], order, q_order, dim, x_loc.to(torch.float32))
+            return y.to(x_loc.dtype)
+        from .local import local_apply_direct
+
+        return local_apply_direct(d[1], d[2], d[3], x_loc)
+
+    def _direct_parts(self, c: _Contribution, geom=None, A=None, dmask=None):
+        """(A, B, w, ns) of the direct apply with the reference's structural
+        restriction: identically-zero derivative blocks of A are dropped, and
+        basis columns with no support (off-face nodes of a value-only
+        boundary kernel) too; ``ns`` lists the local nodes kept (None: all)."""
+        if geom is None:
+            geom = element_geometry(
+                c.tables, self._tensor(c.verts), with_phys_ders=c.field_access is not None
+            )
+            A, _ = self._eval_operators(c, geom)
+            dmask = (A.abs().amax(dim=(0, 1, 3, 4)) > 0).cpu().numpy()
+        E, Q = geom.weights.shape
+        n = c.tables.values.shape[1]
+        rows = [_const(c.tables.values, geom.weights)[None, :, None, :].expand(E, Q, 1, n)]
+        if dmask[1:].any():  # physical derivatives (J^-T refD) only where A needs them
+            rows.append(torch.einsum("eqji,qjn->eqin", geom.jac_inv, _const(c.tables.ref_ders, geom.weights)))
+        B = torch.cat(rows, dim=2)
+        keep_d = np.nonzero(dmask)[0]
+        if 0 < len(keep_d) < A.shape[2]:
+            A = A[:, :, keep_d]
+            B = B[:, :, torch.as_tensor(keep_d, device=self.device)]
+        ns = None
+        if len(keep_d):
+            support = (B.abs().amax(dim=(0, 1, 2)) > 0).cpu().numpy()
+            if not support.all() and support.any():
+                ns = np.nonzero(support)[0]
+                B = B[..., torch.as_tensor(ns, device=self.device)]
+        return A, B, geom.weights, ns
+
+    def _local_kf(self, c: _Contribution, sel: slice):
+        """(K (E, L, L) or None, F (E, L, n_rhs) or None) of the elements
+        ``sel`` of a contribution, as its mode asks."""
+        geom = element_geometry(c.tables, self._tensor(c.verts[sel], _ASM_DTYPE))
+        if c.mode == "rhs":
+            A, f = self._eval_operators(c, geom, sel)
+            F = local_rhs(A, _basis_stack(c.tables, geom), geom.weights, f)
+            return None, F.reshape(F.shape[0], -1, self.n_rhs)
+        fv, fd = self._fields(c, geom, sel)
+        K, F = local_system(c.kernel, c.tables, geom, fv, fd, c.time)
+        return K, (None if c.mode == "operator" else F)
+
+    @staticmethod
+    def _chunk(c: _Contribution) -> int:
+        """Elements per local assembly chunk (bounds the M tensor, ``_M_ENTRIES``)."""
+        n_loc = c.elem_dofs.shape[1] * c.elem_dofs.shape[2]
+        return max(1, _M_ENTRIES // max(c.tables.n_qp * c.kernel.params.n_equations * n_loc, 1))
 
     # subclass hooks
     def _begin_impl(self) -> None:
@@ -608,11 +795,7 @@ class _SystemBase:
             f"{len(self.dirichlet_dofs)} Dirichlet dofs, dtype={self.dtype}, "
             f"device={self.device}{self._describe_extra()}"
         )
-        r = self._last_solve_result
-        if r is not None:
-            state = "converged" if r.converged else ("CAPPED (max_iters)" if r.capped else "NOT converged")
-            s += f"; last solve: {r.num_iters} iters, res {r.tol:.2e}, {state}"
-        return s
+        return s + _last_solve_suffix(self)
 
 
 class MatrixFreeSystem(_SystemBase):
@@ -672,22 +855,6 @@ class MatrixFreeSystem(_SystemBase):
                     diag.index_add_(0, idx, d.reshape(-1))
         self.rhs, self._diag = rhs, diag
 
-    @staticmethod
-    def _use_sumfact(c: _Contribution) -> bool:
-        """Sum-factorized rhs/diagonal (and apply, on the sum-factorized kinds) for
-        volume Quad/Hex contributions: forced by SUM_FACT / SUM_FACT_PALLAS, else
-        at p >= 2 unless DIRECT is asked for; boundaries are direct."""
-        from ..ops.sumfact import supports_sumfact
-
-        strat = c.options.eval_strategy
-        if c.tables.side is not None or strat == LocalEvalStrategy.DIRECT:
-            return False
-        if strat in (LocalEvalStrategy.SUM_FACT, LocalEvalStrategy.SUM_FACT_PALLAS):
-            if not supports_sumfact(c.tables.element_type):
-                raise ValueError("sum factorization requires tensor-product Quad/Hex elements")
-            return True
-        return supports_sumfact(c.tables.element_type) and c.tables.order >= 2
-
     def _use_lattice_sf(self, c: _Contribution) -> bool:
         """Global banded sweeps: LATTICE_SF (which requires a lattice block), or
         AUTO when the volume block is a 2D or 3D lattice (the reference's AUTO
@@ -699,17 +866,6 @@ class MatrixFreeSystem(_SystemBase):
         if plan is None and strat == LocalEvalStrategy.LATTICE_SF:
             raise ValueError("LATTICE_SF requires a structured-lattice mesh block")
         return plan is not None
-
-    @staticmethod
-    def _use_dense(c: _Contribution) -> bool:
-        """Dense basis-matrix apply: DENSE_MXU, or AUTO at p >= 2 (the
-        reference's AUTO on its accelerator, taken here on every device)."""
-        strat = c.options.eval_strategy
-        if c.tables.side is not None:
-            return False
-        return strat == LocalEvalStrategy.DENSE_MXU or (
-            strat == LocalEvalStrategy.AUTO and c.tables.order >= 2
-        )
 
     # -- operator data ----------------------------------------------------------
 
@@ -758,50 +914,6 @@ class MatrixFreeSystem(_SystemBase):
             c.block.nodes.shape[1],
         )
 
-    def _geometry_packed(self, c: _Contribution, with_operators: bool = False):
-        """(Ji_t (dim, dim, EQ), w_t (EQ,)) in block element-major order and in
-        float64 whatever the system dtype: the separable-geometry check needs
-        exact zeros and per-axis constants that float32 rounding would break.
-        Built in element chunks so the (E, Q, dim, dim) intermediates stay bounded.
-
-        ``with_operators`` also evaluates the kernel's A at the same points and
-        appends (nz, A_em): the (d, i, u) indices of A's planes that are nonzero
-        somewhere (``np.argwhere`` order, as the reference finds them, in float64;
-        ``((0, 0, 0),)`` when A is zero) and those planes as A_em (EQ, K) in the
-        system dtype.  Only the planes nonzero in a chunk are kept from it."""
-        E, Q = c.verts.shape[0], c.tables.n_qp
-        chunk = max(1, (1 << (19 if with_operators else 22)) // max(Q, 1))
-        dim = c.tables.dim
-        ji, w, pieces, amax = [], [], [], None
-        for s in range(0, E, chunk):
-            sel = slice(s, s + chunk)
-            verts = self._tensor(c.verts[sel], torch.float64)
-            g = element_geometry(
-                c.tables, verts, with_phys_ders=with_operators and c.field_access is not None
-            )
-            ji.append(g.jac_inv.reshape(-1, dim, dim))
-            w.append(g.weights.reshape(-1))
-            if with_operators:
-                A, _ = self._eval_operators(c, g, sel)
-                shape = A.shape[2:]
-                A = A.reshape(A.shape[0] * A.shape[1], -1)
-                m = A.abs().amax(dim=0).cpu()
-                amax = m if amax is None else torch.maximum(amax, m)
-                sel = torch.nonzero(m > 0).flatten()
-                pieces.append((sel.tolist(), A[:, sel.to(A.device)].to(self.dtype)))
-        Ji_t, w_t = torch.cat(ji).permute(1, 2, 0), torch.cat(w)
-        if not with_operators:
-            return Ji_t, w_t
-        mx = amax.reshape(shape).numpy()
-        nz = tuple(tuple(int(v) for v in ix) for ix in np.argwhere(mx > 0.0)) or ((0, 0, 0),)
-        col = {int(np.ravel_multi_index(ix, mx.shape)): k for k, ix in enumerate(nz)}
-        A_em = self._zeros((w_t.shape[0], len(nz)))
-        off = 0
-        for sel, vals in pieces:
-            A_em[off : off + vals.shape[0], [col[f] for f in sel]] = vals
-            off += vals.shape[0]
-        return Ji_t, w_t, nz, A_em
-
     def _operator_data(self, c: _Contribution):
         """x-independent operator data of one contribution, built on first use."""
         if c.op_data is None:
@@ -809,34 +921,6 @@ class MatrixFreeSystem(_SystemBase):
                 self._boundary_data(c) if c.tables.side is not None else self._volume_data(c)
             )
         return c.op_data
-
-    @staticmethod
-    def _const_operators(c: _Contribution):
-        """The proven-constant A of a field-free volume kernel, else None (a
-        kernel that reads fields takes the variable-coefficient kinds, as in
-        the reference)."""
-        if c.field_access is not None:
-            return None
-        return _constant_kernel_operators(c.kernel, c.time)
-
-    def _packed_operators(self, c: _Contribution):
-        """(A_t (dim+1, n_eq, n_unk, EQ), Ji_t (dim, dim, EQ), w_t (EQ,)) of a
-        variable-coefficient volume contribution: the reference's per-epoch
-        value pass (``_op_value_builder``), in the system dtype, element-major,
-        built in element chunks."""
-        from .local import pack_sumfact_operator
-
-        E, Q = c.verts.shape[0], c.tables.n_qp
-        chunk = max(1, (1 << 19) // max(Q, 1))
-        parts = []
-        for s in range(0, E, chunk):
-            sel = slice(s, s + chunk)
-            geom = element_geometry(
-                c.tables, self._tensor(c.verts[sel]), with_phys_ders=c.field_access is not None
-            )
-            A, _ = self._eval_operators(c, geom, sel)
-            parts.append(pack_sumfact_operator(A, geom, c.tables.dim))
-        return tuple(torch.cat([p[i] for p in parts], dim=-1).contiguous() for i in range(3))
 
     def _volume_data(self, c: _Contribution):
         """Operator data of a volume contribution, by the reference's strategy
@@ -929,59 +1013,42 @@ class MatrixFreeSystem(_SystemBase):
                 A[:, :, :1].cpu().numpy(), geom.weights.cpu().numpy(), fp, c.tables.order, q_order
             )
         if packed is None:
-            return self._direct_data(c, geom, A, dmask, lattice_n1=None if fp is None else fp["n1"])
+            return self._direct_data(c, geom, A, dmask, face=fp)
         return ("face_banded", self._tensor(packed[0]), self._tensor(packed[1]), fp)
 
-    def _direct_data(self, c: _Contribution, geom=None, A=None, dmask=None, lattice_n1=None):
-        """("direct", A, B, w, gather) with the reference's structural
-        restriction: identically-zero derivative blocks of A are dropped, and
-        basis columns with no support (off-face nodes of a value-only boundary
-        kernel) are dropped together with their dofs in the gather.
-        ``lattice_n1``: the lattice of a full side the contribution covers
-        (see :meth:`_gather`)."""
-        if geom is None:
-            geom = element_geometry(
-                c.tables, self._tensor(c.verts), with_phys_ders=c.field_access is not None
-            )
-            A, _ = self._eval_operators(c, geom)
-            dmask = (A.abs().amax(dim=(0, 1, 3, 4)) > 0).cpu().numpy()
-        E, Q = geom.weights.shape
-        n = c.tables.values.shape[1]
-        rows = [_const(c.tables.values, geom.weights)[None, :, None, :].expand(E, Q, 1, n)]
-        if dmask[1:].any():  # physical derivatives (J^-T refD) only where A needs them
-            rows.append(torch.einsum("eqji,qjn->eqin", geom.jac_inv, _const(c.tables.ref_ders, geom.weights)))
-        B = torch.cat(rows, dim=2)
-        keep_d = np.nonzero(dmask)[0]
-        if 0 < len(keep_d) < A.shape[2]:
-            A = A[:, :, keep_d]
-            B = B[:, :, torch.as_tensor(keep_d, device=self.device)]
-        ns = None
-        if len(keep_d):
-            support = (B.abs().amax(dim=(0, 1, 2)) > 0).cpu().numpy()
-            if not support.all() and support.any():
-                ns = np.nonzero(support)[0]
-                B = B[..., torch.as_tensor(ns, device=self.device)]
-        return ("direct", A, B, geom.weights, self._gather(c, ns, lattice_n1))
+    def _direct_data(self, c: _Contribution, geom=None, A=None, dmask=None, face=None):
+        """("direct", A, B, w, gather) of :meth:`_SystemBase._direct_parts`,
+        the dofs of the dropped basis columns left out of the gather.
+        ``face``: the slicing plan of a full lattice side the contribution
+        covers (see :meth:`_gather`)."""
+        A, B, w, ns = self._direct_parts(c, geom, A, dmask)
+        return ("direct", A, B, w, self._gather(c, ns, face))
 
-    def _gather(self, c: _Contribution, ns=None, lattice_n1=None):
-        """(idx, n_rows, lattice) moving the contribution's element values:
-        row_idx (E, n_nodes) into an (n_rows, n_unk) view when every node's
-        kernel dofs are consecutive and row-aligned, else scalar dof indices
-        (E, n_sel*n_unk) with n_rows None; ``ns`` restricts to a subset of local
-        nodes.  ``lattice`` is None, or for a full-side bucket of the lattice
-        ``lattice_n1`` (scalar indices) the pair (n1, idx_lat): the same dofs
-        in the channel-major lattice layout (u * n_rows + node row)."""
+    def _gather(self, c: _Contribution, ns=None, face=None):
+        """How the contribution's element values move, one of:
+
+        - ``("face", fp)``: a bucket covering a full lattice side (``face``,
+          restricted to its surface nodes): one plane of the channel-leading
+          lattice tensor, cut into element windows (``ops.lattice.
+          face_gather_tensor``), in either layout;
+        - ``("lattice", plan, n_rows)``: a volume bucket whose node rows form
+          a full lattice (a kind other than the lattice ones): element
+          windows sliced from the (n_rows, n_unk) view (``lattice_gather``);
+        - ``("rows", row_idx (E, n_nodes), n_rows)``: node rows of an
+          (n_rows, n_unk) view, when every node's kernel dofs are
+          consecutive and row-aligned;
+        - ``("dofs", idx (E, n_sel*n_unk))``: scalar dof indices, ``ns``
+          restricting to a subset of local nodes."""
+        if face is not None:
+            return ("face", face)
         rows = self._row_plan(c) if ns is None else None
         if rows is not None:
-            return torch.as_tensor(rows[0], device=self.device), rows[1], None
+            plan = self._lattice_plan(c)
+            if plan is not None:
+                return ("lattice", plan, rows[1])
+            return ("rows", torch.as_tensor(rows[0], device=self.device), rows[1])
         dofs = c.elem_dofs if ns is None else c.elem_dofs[:, ns]
-        dofs = dofs.reshape(dofs.shape[0], -1)
-        lattice = None
-        if lattice_n1 is not None:
-            n_unk = len(c.dof_inds)
-            lat = (dofs % n_unk) * (self.n_dofs // n_unk) + dofs // n_unk
-            lattice = (tuple(int(a) for a in lattice_n1), torch.as_tensor(lat, device=self.device))
-        return torch.as_tensor(dofs, device=self.device), None, lattice
+        return ("dofs", torch.as_tensor(dofs.reshape(dofs.shape[0], -1), device=self.device))
 
     def _operators(self):
         """(lattice_key, [(contribution, op_data)]): the lattice key (n1, n_rows,
@@ -1005,8 +1072,8 @@ class MatrixFreeSystem(_SystemBase):
                 if d[0] in _LATTICE_KINDS or d[0] == "face_banded":
                     n1 = d[2][0] if d[0] in _LATTICE_KINDS else d[3]["n1"]
                     keys.add((tuple(int(a) for a in n1), self.n_dofs // n_unk, n_unk))
-                elif d[0] == "direct" and d[-1][2] is not None:  # a full lattice side
-                    keys.add((d[-1][2][0], self.n_dofs // n_unk, n_unk))
+                elif d[0] == "direct" and d[-1][0] == "face":  # a full lattice side
+                    keys.add((tuple(d[-1][1]["n1"]), self.n_dofs // n_unk, n_unk))
                 else:
                     keys.add(None)
                 ops.append((c, d))
@@ -1018,41 +1085,13 @@ class MatrixFreeSystem(_SystemBase):
         shared channel-leading lattice tensor; None otherwise."""
         return self._operators()[0]
 
-    def _local_apply(self, c: _Contribution, d, x_loc: torch.Tensor) -> torch.Tensor:
-        """y_loc (E, n_sel, n_unk) of one gather-family contribution."""
-        dim, order = c.tables.dim, c.tables.order
-        q_order = c.options.quadrature_order(order)
-        if d[0] == "dense_const":
-            from .local import local_apply_dense_const
-
-            return local_apply_dense_const(d[1], d[2], d[3], d[4], dim, x_loc)
-        if d[0] == "dense":
-            from .local import local_apply_dense_packed
-
-            return local_apply_dense_packed(d[1], d[2], d[3], d[4], dim, x_loc)
-        if d[0] == "sumfact":
-            from .local import local_apply_sumfact_packed
-
-            return local_apply_sumfact_packed(d[1], d[2], d[3], order, q_order, dim, x_loc)
-        if d[0] == "sumfact_const":
-            from .local import local_apply_sumfact_const
-
-            return local_apply_sumfact_const(d[1], d[2], d[3], x_loc.shape[0], order, q_order, dim, x_loc)
-        if d[0] == "pallas":
-            from ..ops.sumfact_fused import sumfact_const_apply
-
-            y = sumfact_const_apply(d[1], d[2], d[3], order, q_order, dim, x_loc.to(torch.float32))
-            return y.to(x_loc.dtype)
-        from .local import local_apply_direct
-
-        return local_apply_direct(d[1], d[2], d[3], x_loc)
-
     def _apply(self, x: torch.Tensor, lattice_io: bool, ops) -> torch.Tensor:
         """Unconstrained operator of the (contribution, op_data) list ``ops``
         on (n_dofs, n_rhs) vectors.  Lattice-family contributions work on one
         channel-leading tensor per rhs column; gather-family ones gather
         element values per column and scatter-add into one flat accumulator
         per column."""
+        from ..ops.lattice import face_gather_tensor, face_scatter_tensor_add, lattice_gather, lattice_scatter_add
         from ..ops.lattice_sumfact import face_apply_banded, local_apply_lattice
 
         tacc: dict = {}
@@ -1119,20 +1158,31 @@ class MatrixFreeSystem(_SystemBase):
                     # accumulators are fresh tensors owned here: add the plane in place
                     tacc[(key, r)].select(pos, pidx).add_(yp)
                 continue
-            idx, n_rows, lat = d[-1]
-            if lattice_io:  # only full-side buckets of the lattice: scalar indices
-                idx = lat[1]
-            E = idx.shape[0]
+            how = d[-1]
+            order = c.tables.order
+            if how[0] == "face":  # one plane of the shared lattice tensor, either layout
+                fp = how[1]
+                key = (tuple(fp["n1"]), self.n_dofs // n_unk, n_unk)
+                for r in range(r_n):
+                    y_loc = self._local_apply(c, d, face_gather_tensor(t_in(key, r), fp, order))
+                    if (key, r) not in tacc:
+                        tacc[(key, r)] = x.new_zeros((n_unk,) + tuple(reversed(fp["n1"])))
+                    face_scatter_tensor_add(y_loc, fp, order, tacc[(key, r)])
+                continue
             for r in range(r_n):
                 if r not in flat:
                     flat[r] = torch.zeros(self.n_dofs, dtype=x.dtype, device=x.device)
-                if n_rows is not None:  # node-row gather / scatter
-                    x_loc = x[:, r].reshape(n_rows, n_unk)[idx]
-                    y_loc = self._local_apply(c, d, x_loc)
+                if how[0] == "lattice":  # element windows sliced from the node-row view
+                    _, plan, n_rows = how
+                    y_loc = self._local_apply(c, d, lattice_gather(x[:, r].reshape(n_rows, n_unk), plan, order))
+                    flat[r] += lattice_scatter_add(y_loc, plan, order).reshape(-1)
+                elif how[0] == "rows":  # node-row gather / scatter
+                    _, idx, n_rows = how
+                    y_loc = self._local_apply(c, d, x[:, r].reshape(n_rows, n_unk)[idx])
                     flat[r].view(n_rows, n_unk).index_add_(0, idx.reshape(-1), y_loc.reshape(-1, n_unk))
                 else:  # scalar dof indices (restricted node subsets)
-                    x_loc = x[idx, r].reshape(E, -1, n_unk)
-                    y_loc = self._local_apply(c, d, x_loc)
+                    idx = how[1]
+                    y_loc = self._local_apply(c, d, x[idx, r].reshape(idx.shape[0], -1, n_unk))
                     flat[r].index_add_(0, idx.reshape(-1), y_loc.reshape(-1))
         y = torch.zeros_like(x)
         for (key, r), t in tacc.items():
@@ -1347,24 +1397,6 @@ class AssembledSystem(_SystemBase):
         self.rhs = self._asm_zeros((self.n_dofs, self.n_rhs))
         self._csr = None
         self._cond_aggs = {}
-
-    def _local_kf(self, c: _Contribution, sel: slice):
-        """(K (E, L, L) or None, F (E, L, n_rhs) or None) of the elements
-        ``sel`` of a contribution, as its mode asks."""
-        geom = element_geometry(c.tables, self._tensor(c.verts[sel], _ASM_DTYPE))
-        if c.mode == "rhs":
-            A, f = self._eval_operators(c, geom, sel)
-            F = local_rhs(A, _basis_stack(c.tables, geom), geom.weights, f)
-            return None, F.reshape(F.shape[0], -1, self.n_rhs)
-        fv, fd = self._fields(c, geom, sel)
-        K, F = local_system(c.kernel, c.tables, geom, fv, fd, c.time)
-        return K, (None if c.mode == "operator" else F)
-
-    @staticmethod
-    def _chunk(c: _Contribution) -> int:
-        """Elements per local assembly chunk (bounds the M tensor, ``_M_ENTRIES``)."""
-        n_loc = c.elem_dofs.shape[1] * c.elem_dofs.shape[2]
-        return max(1, _M_ENTRIES // max(c.tables.n_qp * c.kernel.params.n_equations * n_loc, 1))
 
     def _add_contribution(self, c: _Contribution) -> None:
         if (

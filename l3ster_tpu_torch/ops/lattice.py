@@ -1,10 +1,13 @@
-"""Structured-lattice detection (port of the host half of ``l3ster_tpu.ops.lattice``).
+"""Structured-lattice element access (PyTorch port of ``l3ster_tpu.ops.lattice``).
 
 When a mesh block is a structured tensor-product lattice (every generated
 Cube/Square mesh after ``lattice_renumber``), the matrix-free apply runs as
 global banded sweeps on the lattice tensor (``ops/lattice_sumfact.py``) and
 a boundary bucket covering one full side of the block becomes one lattice
-plane.  These host-side numpy checks decide whether that holds.
+plane.  The host-side numpy checks here decide whether that holds; the
+slicing gathers then read a lattice block's element values without a node
+gather: ``Tensor.unfold`` cuts the windows along each axis, and the exact
+transposes overlap-add them back.
 
 Window structure along one axis of length n1 = ne*p + 1 (ne elements of
 order p sharing endpoints): window e = [e*p, e*p + p].
@@ -13,8 +16,18 @@ order p sharing endpoints): window e = [e*p, e*p + p].
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["detect_lattice_plan", "detect_face_plan"]
+__all__ = [
+    "detect_lattice_plan",
+    "detect_face_plan",
+    "lattice_gather",
+    "lattice_scatter_add",
+    "face_gather",
+    "face_scatter_pad",
+    "face_gather_tensor",
+    "face_scatter_tensor_add",
+]
 
 
 def detect_lattice_plan(row_idx: np.ndarray, n_rows: int, order: int, dim: int):
@@ -133,3 +146,102 @@ def detect_face_plan(vol_plan, order: int, dim: int, side: int, elem_sel, ns, n_
         n1=tuple(int(a) for a in n1),
         plan2d=(n12, ne2, feidx, finv),
     )
+
+
+def _unwindow0(w: torch.Tensor, ne: int, p: int) -> torch.Tensor:
+    """Axis-0 overlap-add, exact transpose of :func:`_window0`: windows share
+    endpoints, so the closing node of window e adds onto the opening node of
+    window e+1.  w (ne, p+1, ...) -> t (ne*p+1, ...)."""
+    out = w.new_zeros((ne * p + 1,) + tuple(w.shape[2:]))
+    out[: ne * p].view((ne, p) + tuple(w.shape[2:])).add_(w[:, :p])
+    out[p::p].add_(w[:, p])
+    return out
+
+
+def _tensor_of(x: torch.Tensor, n1: tuple) -> torch.Tensor:
+    """(n_rows, c) lattice rows as the (n1_d, ..., n1_x, c) tensor view."""
+    return x.reshape(tuple(reversed(n1)) + (x.shape[-1],))
+
+
+def lattice_gather(x: torch.Tensor, plan, order: int) -> torch.Tensor:
+    """x (n_rows, c) -> x_loc (E, n_nodes, c) by slicing (no node gather).
+
+    Canonical element order is x-fastest; a non-canonical block element
+    order costs one gather of whole element rows (``eidx``)."""
+    n1, ne, eidx, _ = plan
+    p, n = order, order + 1
+    c = x.shape[-1]
+    dim = len(n1)
+    t = _tensor_of(x, n1)
+    # unfold each lattice axis into (elements, ..., window): the windows of
+    # the axes land last, in the order unfolded (z, y, x)
+    for a in range(dim):
+        t = t.unfold(a, n, p)
+    # (ne_d, ..., ne_x, c, n_d, ..., n_x) -> (ne_d, ..., ne_x, n_d, ..., n_x, c)
+    t = torch.movedim(t, dim, -1)
+    out = t.reshape(int(np.prod(ne)), n**dim, c)
+    return out if eidx is None else out[torch.as_tensor(eidx, dtype=torch.int64, device=x.device)]
+
+
+def lattice_scatter_add(y_loc: torch.Tensor, plan, order: int) -> torch.Tensor:
+    """Exact transpose of :func:`lattice_gather`: (E, n_nodes, c) -> (n_rows, c)."""
+    n1, ne, _, inv_eidx = plan
+    p, n = order, order + 1
+    c = y_loc.shape[-1]
+    dim = len(n1)
+    if inv_eidx is not None:
+        y_loc = y_loc[torch.as_tensor(inv_eidx, dtype=torch.int64, device=y_loc.device)]
+    # (ne_d, ..., ne_x, n_d, ..., n_x, c) -> (ne_d, n_d, ..., ne_x, n_x, c)
+    t = y_loc.reshape(tuple(reversed(ne)) + (n,) * dim + (c,))
+    t = t.permute([i for a in range(dim) for i in (a, dim + a)] + [2 * dim])
+    # overlap-add x first, then y (then z), as the reference does
+    for a in reversed(range(dim)):
+        t = torch.movedim(t, (2 * a, 2 * a + 1), (0, 1))
+        t = torch.movedim(_unwindow0(t, ne[dim - 1 - a], p), 0, 2 * a)
+    return t.reshape(-1, c)
+
+
+def _face_pos(fp: dict) -> tuple[int, int]:
+    """(position of the face's axis in the (c, n1_d, ..., n1_x) layout, plane index)."""
+    n1, axis = fp["n1"], fp["axis"]
+    pos = 1 + (len(n1) - 1 - axis)
+    return pos, int(fp.get("plane", n1[axis] - 1 if fp["hi"] else 0))
+
+
+def face_gather_tensor(t: torch.Tensor, fp: dict, order: int) -> torch.Tensor:
+    """Element values of a full-side boundary bucket from the channel-leading
+    lattice tensor t (c, n1_d, ..., n1_x): one plane slice, then the
+    (dim-1)D window extraction -> (E_face, n_surface_nodes, c).  ``fp["plane"]``
+    (when present) names the plane, as the box decomposition's windows do."""
+    pos, idx = _face_pos(fp)
+    plane = torch.movedim(t.select(pos, idx), 0, -1)
+    return lattice_gather(plane.reshape(-1, t.shape[0]), fp["plan2d"], order)
+
+
+def face_gather(x: torch.Tensor, fp: dict, order: int) -> torch.Tensor:
+    """:func:`face_gather_tensor` from (n_rows, c) lattice rows."""
+    c = x.shape[-1]
+    return face_gather_tensor(x.T.reshape((c,) + tuple(reversed(fp["n1"]))), fp, order)
+
+
+def _face_plane(y_loc: torch.Tensor, fp: dict, order: int) -> torch.Tensor:
+    """The (dim-1)D overlap-add of a face's element values as the
+    channel-leading plane (c, ...)."""
+    plane = lattice_scatter_add(y_loc, fp["plan2d"], order)
+    return torch.movedim(plane.reshape(tuple(reversed(fp["plan2d"][0])) + (y_loc.shape[-1],)), -1, 0)
+
+
+def face_scatter_tensor_add(y_loc: torch.Tensor, fp: dict, order: int, acc: torch.Tensor) -> torch.Tensor:
+    """Exact transpose of :func:`face_gather_tensor`, added in place into the
+    channel-leading lattice tensor ``acc`` (c, n1_d, ..., n1_x), which is
+    returned: the face touches only its plane."""
+    pos, idx = _face_pos(fp)
+    acc.select(pos, idx).add_(_face_plane(y_loc, fp, order))
+    return acc
+
+
+def face_scatter_pad(y_loc: torch.Tensor, fp: dict, order: int) -> torch.Tensor:
+    """Exact transpose of :func:`face_gather`, padded back to (n_rows, c)."""
+    c = y_loc.shape[-1]
+    full = y_loc.new_zeros((c,) + tuple(reversed(fp["n1"])))
+    return face_scatter_tensor_add(y_loc, fp, order, full).reshape(c, -1).T

@@ -118,6 +118,8 @@ def zsweep_layers(NzT: np.ndarray, DzT: np.ndarray) -> tuple[np.ndarray, np.ndar
     table without that structure."""
     NzT, DzT = np.asarray(NzT), np.asarray(DzT)
     n1z, S = NzT.shape
+    if S == 0 or n1z < 2:
+        raise ValueError(f"z tables of {n1z} node rows and {S} QP rows have no element layer")
     nz = (NzT != 0) | (DzT != 0)
     lo, hi = _band(nz)
     if (hi < 0).any():

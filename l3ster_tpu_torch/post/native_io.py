@@ -7,8 +7,10 @@ mesh is stored globally and any distribution is re-derived on load (the
 re-shard-on-load analog of ``post/NativeIO.hpp:265-266`` /
 ``examples/08-native-io``).  Storage is a single .npz with a JSON manifest.
 Copied from ``l3ster_tpu.post.native_io``: the two packages read and write
-the same files.  Re-sharding a loaded mesh waits for the port's distribution
-(ROADMAP.md queue A11).
+the same files.  A checkpoint saved from a distributed system's solution at
+one shard count loads into one at another: the mesh is rebuilt, a new
+``make_distributed_system`` re-partitions it, and the nodal fields go back
+through its ``_set_solution_global``.
 """
 
 from __future__ import annotations

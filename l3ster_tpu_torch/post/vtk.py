@@ -185,24 +185,22 @@ class PvtuExporter:
         """Write one .vtu piece per shard + a .pvtu master referencing them
         (``post/VtkExport.hpp:41-80``: one piece per rank).
 
-        ``partition`` is a dict ``{id(block): (n_elements,) part array}``
+        ``partition`` is either a DistributedSystem (its element partition is
+        reused) or a dict ``{id(block): (n_elements,) part array}``
         (``parallel.partition.partition_mesh_elements`` makes one); each piece
-        holds only its shard's elements with a compacted point list.  A
-        distributed system as the partition waits for the port's distribution
-        (ROADMAP.md queue A11).
+        holds only its shard's elements with a compacted point list.
         """
         if not export_def.path.endswith(".pvtu"):
             raise ValueError("sharded export requires a .pvtu path")
         if partition is None:
             raise ValueError("sharded export requires a partition (system or parts dict)")
-        if not isinstance(partition, dict):
-            raise NotImplementedError(
-                "sharded export from a distributed system is not ported (ROADMAP.md queue A11); "
-                "pass a parts dict"
-            )
-        parts = partition
-        if n_pieces is None:
-            n_pieces = 1 + max(int(p.max()) for p in parts.values() if len(p))
+        if hasattr(partition, "_parts"):
+            n_pieces = n_pieces or partition.n_shards
+            parts = partition._parts
+        else:
+            parts = partition
+            if n_pieces is None:
+                n_pieces = 1 + max(int(p.max()) for p in parts.values() if len(p))
         mesh = self.mesh
         base = export_def.path[:-5]
         os.makedirs(os.path.dirname(os.path.abspath(export_def.path)) or ".", exist_ok=True)
@@ -232,12 +230,10 @@ class PvtuExporter:
                 piece_nodes = np.unique(conn_g)
             else:
                 piece_nodes = np.empty(0, dtype=np.int64)
-            remap = {int(g): i for i, g in enumerate(piece_nodes)}
             points = np.asarray(mesh.node_coords, dtype=np.float64)[piece_nodes]
+            # piece-local point ids: positions in the sorted piece node list
             connectivity = (
-                np.asarray([remap[int(g)] for g in conn_g], dtype=np.int64)
-                if conn_parts
-                else np.empty(0, dtype=np.int64)
+                np.searchsorted(piece_nodes, conn_g).astype(np.int64) if conn_parts else np.empty(0, dtype=np.int64)
             )
             offsets_l, off = [], 0
             for c in conn_parts:

@@ -147,8 +147,11 @@ def _run_chunked(solve, o: IterSolverOpts, x0):
 
 
 def _col_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Per-column inner products of (n, n_rhs) multivectors -> (n_rhs,)."""
-    return (a * b).sum(dim=0)
+    """Per-column inner products of (..., n_rhs) multivectors -> (n_rhs,):
+    the sum runs over every leading axis, so a distributed system's stacked
+    (n_shards, n_loc, n_rhs) vectors (ghost and dump slots held at zero)
+    reduce like (n, n_rhs) ones."""
+    return (a * b).reshape(-1, a.shape[-1]).sum(dim=0)
 
 
 def _residual_scale(b, r0, residual_scaling: str):
@@ -292,7 +295,7 @@ def gmres_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, r
             R[:, j] = h
             j += 1
         y = _back_substitute(R[:m], g[:m], m).to(b2.device)
-        x = x + (V[:j] * y[:j, None, :]).sum(dim=0)
+        x = x + (V[:j] * y[:j].reshape((j,) + (1,) * (b2.ndim - 1) + (n_rhs,))).sum(dim=0)
         r = b2 - operator(x)
         res = ((_col_dots(r, r).sqrt() / bnorm).max()).cpu()
         it += j

@@ -23,6 +23,12 @@ Every level is built on the fine system's device and in its dtype.  Works
 for systems whose volume discretization lives on a structured lattice with
 lex node numbering (``generate_mesh(make_cube_mesh/make_square_mesh(...))``)
 and whose boundary ids follow the generator defaults.
+
+On a :class:`~l3ster_tpu_torch.parallel.box.BoxSystem` the V-cycle is
+window-decomposed: level 0 smooths with the box operator itself, the
+restriction contracts each shard's window with window-sliced interpolation
+bands (ghost and padding rows zero) and sums over the shards, and every
+level below runs on the whole coarse vector, as on one device.
 """
 
 from __future__ import annotations
@@ -174,9 +180,9 @@ def _power_start(level: int, n: int, dtype, device) -> torch.Tensor:
 def _lambda_max(fn, ocs, dinv, v) -> float:
     """lambda_max of D^-1 A by 15 power-iteration steps from v (setup time)."""
     for _ in range(15):
-        w = dinv[:, None] * fn(v, *ocs)
+        w = dinv[..., None] * fn(v, *ocs)
         v = w / torch.linalg.norm(w)
-    w = dinv[:, None] * fn(v, *ocs)
+    w = dinv[..., None] * fn(v, *ocs)
     return float((v * w).sum() / (v * v).sum())
 
 
@@ -212,27 +218,9 @@ class LowOrderMG:
         apply, pc = self.setup_parts(system)
         return lambda r: apply(r, *pc)
 
-    def setup_parts(self, system, layout: str = "dof"):
-        from ..algsys.system import MatrixFreeSystem, _SystemBase
-
-        if not isinstance(system, _SystemBase):
-            raise NotImplementedError(
-                "LowOrderMG on box-decomposed or distributed systems is not ported "
-                "(ROADMAP.md queue A11)"
-            )
-        lat = layout == "lattice"
-        axes = _axis_coords(system.mesh)
-        if axes is None:
-            raise ValueError(
-                "LowOrderMG requires a structured lattice mesh with lex node numbering"
-            )
-        dtype, device = system.dtype, system.device
-        dim = system.mesh.dim
-        n_unk = system.n_dofs // system.mesh.n_nodes
-        if n_unk * system.mesh.n_nodes != system.n_dofs:
-            raise ValueError("LowOrderMG requires uniform dofs per node")
-
-        # lattice hierarchy (axis index subsets)
+    def _hierarchy(self, axes, n_unk: int) -> list:
+        """The lattice levels' axis index subsets, coarsened until the
+        coarsest fits the dense inverse."""
         level_axes = [axes]
         while len(level_axes) < self.n_levels:
             cand = [_coarsen(a) for a in level_axes[-1]]
@@ -245,6 +233,35 @@ class LowOrderMG:
             if all(len(a) <= 2 for a in level_axes[-1]):
                 break
             level_axes.append([_coarsen(a) for a in level_axes[-1]])
+        return level_axes
+
+    def setup_parts(self, system, layout: str = "dof"):
+        from ..algsys.system import MatrixFreeSystem
+        from ..parallel.box import BoxSystem
+
+        if isinstance(system, BoxSystem):
+            if layout != "dof":
+                raise ValueError("box LowOrderMG runs on the stacked window layout")
+            return self._setup_parts_box(system)
+        if hasattr(system, "n_loc1"):  # DistributedSystem
+            raise ValueError(
+                "LowOrderMG needs a structured lattice; on multiple chips use "
+                "box_parallelize(system, ...) (window-decomposed LowOrderMG, "
+                "the intended pairing for structured meshes) or "
+                "PMultigrid (distributed-native, any mesh)"
+            )
+        lat = layout == "lattice"
+        axes = _axis_coords(system.mesh)
+        if axes is None:
+            raise ValueError(
+                "LowOrderMG requires a structured lattice mesh with lex node numbering"
+            )
+        dtype, device = system.dtype, system.device
+        dim = system.mesh.dim
+        n_unk = system.n_dofs // system.mesh.n_nodes
+        if n_unk * system.mesh.n_nodes != system.n_dofs:
+            raise ValueError("LowOrderMG requires uniform dofs per node")
+        level_axes = self._hierarchy(axes, n_unk)
 
         levels = []
         consts: list = []
@@ -391,3 +408,106 @@ class LowOrderMG:
             return z
 
         return apply, tuple(consts)
+
+    def _setup_parts_box(self, box):
+        """The V-cycle on a window-decomposed :class:`~l3ster_tpu_torch.parallel.box.BoxSystem`
+        (``lowordermg.py:453-621``): level 0 smooths with the box operator
+        (``fine_level0``), the restriction contracts each shard's node window
+        with its slice of the per-axis interpolation bands and sums the
+        partial coarse vectors over the shards, and the levels below the
+        first coarsening run on the whole coarse vector as on one device.
+        Ghost and padding rows are zero in the band slices, so the
+        restriction counts every fine row once and the prolongation leaves
+        the ghost planes at zero."""
+        inner = box.inner
+        axes = _axis_coords(inner.mesh)
+        if axes is None:
+            raise ValueError("LowOrderMG requires a structured lattice mesh with lex node numbering")
+        if inner.mesh.dim != 3:
+            raise ValueError("box LowOrderMG is 3D-only (box decomposition is)")
+        dtype, device = box.dtype, box.device
+        n_unk = inner.n_dofs // inner.mesh.n_nodes
+        level_axes = self._hierarchy(axes, n_unk)
+        if len(level_axes) < 2:
+            raise ValueError("box LowOrderMG needs at least one coarsening level")
+        c_ax = level_axes[1]
+
+        fn_box, oc = box.operator_parts()
+        d = box.diagonal()  # unit on ghost and padding slots
+        dinv = torch.where(d.abs() > 1e-14, 1.0 / d, torch.ones_like(d))
+        own = box._own_st
+        v = _power_start(0, own.numel(), dtype, device).reshape(own.shape + (1,)) * own[..., None]
+        lam0 = _lambda_max(fn_box, oc, dinv, v) * 1.05
+
+        # window slices of the per-axis interpolation bands
+        P, (Pz, Py) = box.n_shards, box.grid
+        nz_loc, ny_loc, nx = box._n1_loc[2], box._n1_loc[1], box._n1_loc[0]
+        Pxb, Pyb, Pzb = (_interp_1d(f, c) for f, c in zip(axes, c_ax))
+        nX, nY, nZ = Pxb.shape[1], Pyb.shape[1], Pzb.shape[1]
+        Pz_sl, Py_sl = np.zeros((P, nz_loc, nZ)), np.zeros((P, ny_loc, nY))
+        for pz in range(Pz):
+            for py in range(Py):
+                p = pz * Py + py
+                nzr = box._nez_real[pz] * box._order + 1 if box._nez_real[pz] else 0
+                nyr = box._ney_real[py] * box._order + 1 if box._ney_real[py] else 0
+                Pz_sl[p, :nzr] = Pzb[box._z0[pz] : box._z0[pz] + nzr]
+                Py_sl[p, :nyr] = Pyb[box._y0[py] : box._y0[py] + nyr]
+                if pz > 0:
+                    Pz_sl[p, 0] = 0.0  # ghost plane: the z predecessor owns it
+                if py > 0:
+                    Py_sl[p, 0] = 0.0  # ghost row: the y predecessor owns it
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+
+        coarse_dense = int(np.prod([len(a) for a in c_ax])) * n_unk <= self.coarse_max_dofs
+        c_app = None
+        if coarse_dense:
+            coarse_consts = (t(_assembled_dense_inv(inner, c_ax)),)
+        else:
+            s1 = _build_p1_system(inner, c_ax)
+            sub = LowOrderMG(
+                n_levels=max(1, self.n_levels - 1), smooth_degree=self.smooth_degree,
+                pre_degree=self.pre_degree, cycles=1, fine_level0=True,
+                coarse_max_dofs=self.coarse_max_dofs, eig_ratio=self.eig_ratio,
+            )
+            c_app, sub_consts = sub.setup_parts(s1)
+            coarse_consts = (s1.free_mask,) + tuple(sub_consts)
+
+        n_oc = len(oc)
+        pre_degree = self.pre_degree if self.pre_degree is not None else self.smooth_degree
+        smooth_degree, cycles, eig_ratio = self.smooth_degree, self.cycles, self.eig_ratio
+
+        def apply(r, *cs):
+            ocs = cs[:n_oc]
+            dinv_, free_, Pz_s, Py_s, Px_ = cs[n_oc : n_oc + 5]
+            ccs = cs[n_oc + 5 :]
+            m = r.shape[-1]
+
+            def vcycle0(r0):
+                if pre_degree > 0:
+                    z = _cheb(fn_box, r0, torch.zeros_like(r0), dinv_, lam0, ocs, pre_degree, eig_ratio, z0_zero=True)
+                    rcf = r0 - fn_box(z, *ocs)
+                else:
+                    z = torch.zeros_like(r0)
+                    rcf = r0
+                # restriction: each shard's window against its band slices, then
+                # the sum over the shards (the reference's all-reduce)
+                tt = (rcf * free_[..., None]).reshape(P, nz_loc, ny_loc, nx, n_unk, m)
+                tt = torch.einsum("pzyxcm,pzZ->pZyxcm", tt, Pz_s)
+                tt = torch.einsum("pZyxcm,pyY->pZYxcm", tt, Py_s)
+                tt = torch.einsum("pZYxcm,xX->pZYXcm", tt, Px_)
+                rc = tt.sum(dim=0).reshape(-1, m)
+                zc = ccs[0] @ rc if coarse_dense else c_app(rc * ccs[0][:, None], *ccs[1:])
+                # prolongation: the coarse correction onto each shard's window
+                tz = zc.reshape(nZ, nY, nX, n_unk, m)
+                tz = torch.einsum("ZYXcm,pzZ->pzYXcm", tz, Pz_s)
+                tz = torch.einsum("pzYXcm,pyY->pzyXcm", tz, Py_s)
+                tz = torch.einsum("pzyXcm,xX->pzyxcm", tz, Px_)
+                z = z + tz.reshape(r0.shape) * free_[..., None]
+                return _cheb(fn_box, r0, z, dinv_, lam0, ocs, smooth_degree, eig_ratio)
+
+            z = vcycle0(r)
+            for _ in range(cycles - 1):
+                z = z + vcycle0(r - fn_box(z, *ocs))
+            return z
+
+        return apply, tuple(oc) + (dinv, box._free_st, t(Pz_sl), t(Py_sl), t(Pxb)) + coarse_consts

@@ -23,7 +23,15 @@ operator of its assembly: under ``lag`` the V-cycle keeps smoothing with
 that operator until the next refresh, as the reference's does.  For
 transient stepping set ``lag=k`` (refresh every k+1 reassemblies) or
 ``lag="auto"`` (refresh when the solver sees the iteration count degrade,
-``solve/krylov.py:_note_precond_iters``).  Single device only.
+``solve/krylov.py:_note_precond_iters``).
+
+On a :class:`~l3ster_tpu_torch.parallel.distributed.DistributedSystem` the
+V-cycle runs on the stacked ``(n_shards, n_loc1, m)`` vectors: smoothing
+with the system's operator (its halo exchange inside), a restriction whose
+Q1 weights are zeroed outside each shard's owned slots and summed over the
+shards (the reference's ``psum``), the coarse ``Binv @ r`` on the whole
+coarse vector (the reference replicates it on every shard), and a gather for
+the prolongation; the result is masked to the owned slots.
 """
 
 from __future__ import annotations
@@ -176,9 +184,11 @@ class PMultigrid:
         if layout != "dof":
             raise ValueError("PMultigrid runs on dof-major vectors (unstructured meshes)")
         if not isinstance(system, _SystemBase):
-            raise NotImplementedError(
-                "PMultigrid on box-decomposed or distributed systems is not ported (ROADMAP.md queue A11)"
+            raise ValueError(
+                "PMultigrid needs a system holding its mesh (matrix-free, assembled or "
+                "distributed); a box-decomposed system takes LowOrderMG"
             )
+        distributed = hasattr(system, "n_loc1")
         fn, oc = system.operator_parts()
         cache = getattr(system, "_pmg_static_cache", None)
         if cache is None:
@@ -186,12 +196,14 @@ class PMultigrid:
         st = cache.get(self)
         if st is None:
             st = cache[self] = self._build_static(system)
+            if distributed:
+                st.update(self._build_static_distributed(system, st))
         seconds: dict = {}
         Binv_np = _coarse_dense_inv(system, st["s1"], st["fine_ids"], seconds)
         t0 = time.perf_counter()
         d = system.diagonal()
         dinv = torch.where(d.abs() > 1e-14, 1.0 / d, torch.ones_like(d))
-        v0 = _power_start(0, system.n_dofs, system.dtype, system.device)
+        v0 = _power_start(0, d.numel(), system.dtype, system.device).reshape(d.shape + (1,))
         lam_max = _lambda_max(fn, oc, dinv, v0) * 1.05
         t1 = time.perf_counter()
         # the coarse inverse ships in the system dtype: a rounder one (the
@@ -203,6 +215,9 @@ class PMultigrid:
         seconds["upload"] = time.perf_counter() - t1
         st["last_refresh"] = seconds
         st["refreshes"] += 1
+        if distributed:
+            consts = (*oc, dinv, system._free_local, system._owned_mask, lam_max, st["cnb"], st["cwt"], Binv)
+            return self._make_apply_distributed(fn, len(oc), st), consts
         return self._make_apply(fn, len(oc), st), (*oc, dinv, system.free_mask, lam_max, st["nbr"], Binv)
 
     def _build_static(self, system) -> dict:
@@ -226,6 +241,65 @@ class PMultigrid:
             wts=torch.as_tensor(wts_np, dtype=system.dtype, device=system.device),
             refreshes=0, last_refresh=None,
         )
+
+    @staticmethod
+    def _build_static_distributed(system, st: dict) -> dict:
+        """Per-shard transfer stencils over the stacked slots: coarse dof ids
+        (node-major: coarse node * n_unk + unknown) and Q1 weights, the
+        weights zero outside each shard's owned slots, so the summed
+        restriction counts every fine dof once."""
+        n_unk = st["n_unk"]
+        nbr_np, wts_np = st["nbr"].cpu().numpy(), st["wts"].cpu().numpy()
+        P, L, K = system.n_shards, system.n_loc1, nbr_np.shape[1]
+        cnb = np.zeros((P, L, K), dtype=np.int64)
+        cwt = np.zeros((P, L, K))
+        for p in range(P):
+            own = system._owned[p]
+            node, unk = own // n_unk, own % n_unk
+            cnb[p, : len(own)] = nbr_np[node] * n_unk + unk[:, None]
+            cwt[p, : len(own)] = wts_np[node]
+        return dict(
+            cnb=torch.as_tensor(cnb, device=system.device),
+            cwt=torch.as_tensor(cwt, dtype=system.dtype, device=system.device),
+        )
+
+    def _make_apply_distributed(self, fn, n_oc: int, st: dict):
+        """The V-cycle on stacked vectors as apply(r, *consts) over the consts
+        of a refresh (see the module doc)."""
+        n_cdofs = st["n_cnodes"] * st["n_unk"]
+        pre_degree = self.pre_degree if self.pre_degree is not None else self.smooth_degree
+        smooth_degree, cycles, eig_ratio = self.smooth_degree, self.cycles, self.eig_ratio
+
+        def apply(r, *cs):
+            ocs = cs[:n_oc]
+            dinv, free, owned, lam_max, cnb, cwt, Binv = cs[n_oc:]
+
+            def restrict(rf):
+                m = rf.shape[-1]
+                rc = torch.zeros((n_cdofs, m), dtype=rf.dtype, device=rf.device)
+                return rc.index_add_(0, cnb.reshape(-1), (cwt[..., None] * rf[:, :, None, :]).reshape(-1, m))
+
+            def prolong(zc):
+                return (cwt[..., None] * zc[cnb]).sum(dim=2)
+
+            def vcycle(r_l):
+                if pre_degree > 0:
+                    z = _cheb(fn, r_l, torch.zeros_like(r_l), dinv, lam_max, ocs, pre_degree, eig_ratio, z0_zero=True)
+                    rc = r_l - fn(z, *ocs)
+                else:
+                    z = torch.zeros_like(r_l)
+                    rc = r_l
+                zc = Binv @ restrict(rc * free[..., None])
+                z = z + prolong(zc) * free[..., None]
+                return _cheb(fn, r_l, z, dinv, lam_max, ocs, smooth_degree, eig_ratio)
+
+            z = vcycle(r)
+            for _ in range(cycles - 1):
+                z = z + vcycle(r - fn(z, *ocs))
+            # ghost and dump slots return zero: the Krylov dots sum every slot
+            return z * owned[..., None]
+
+        return apply
 
     def _make_apply(self, fn, n_oc: int, st: dict):
         """The V-cycle as apply(r, *consts) over the consts of a refresh."""

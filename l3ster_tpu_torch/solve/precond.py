@@ -12,9 +12,16 @@ host in C++ (:mod:`.hostops`), ILUT with SciPy's ``spilu``.
 Every preconditioner speaks the reference's protocol: ``setup(system)``
 returns ``M(r)`` on dof-layout vectors, and ``setup_parts(system[, layout])``
 returns ``(apply(r, *consts), consts)`` (``"lattice"`` layout where
-``supports_lattice_layout``).  The reference's distributed (additive
-Schwarz) branches and their ``overlap`` option wait for the port's
-distributed system (``ROADMAP.md`` A11).
+``supports_lattice_layout``).
+
+On a :class:`~l3ster_tpu_torch.parallel.distributed.DistributedSystem`
+(stacked ``(n_shards, n_loc1, n_rhs)`` vectors) Jacobi and Chebyshev run
+unchanged; SGS, ILU0 and ILUT become additive Schwarz with per-shard local
+solves on each shard's block of the gathered CSR (``overlap`` 0: owned
+dofs, no exchange; 1: owned and ghost dofs, import -> local solve -> export
+-> owned mask, symmetric and CG-safe), as Ifpack2 runs under MPI; and
+BlockJacobi inverts the same node blocks as on one device, each on the
+shard owning the node.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ def _identity_apply(r, *pc):
 
 
 def _jacobi_apply(r, inv):
-    return inv[:, None] * r
+    return inv[..., None] * r
 
 
 def _assembled_csr(system, who: str):
@@ -47,6 +54,69 @@ def _assembled_csr(system, who: str):
 
 def _host_f64(data: torch.Tensor) -> np.ndarray:
     return data.detach().cpu().numpy().astype(np.float64)
+
+
+def _is_distributed(system) -> bool:
+    return getattr(system, "shard_blocks", None) is not None
+
+
+def _schwarz_csrs(system, who: str, overlap: int = 1):
+    """Per-shard local CSRs over the common [owned | ghost | dump] slot space
+    (n = n_loc1): each shard's block of the gathered matrix, unit diagonal on
+    its unused and dump slots.  ``overlap=1`` spans [owned | ghost]: one layer
+    of overlap, applied as import -> local solve -> export -> owned mask,
+    which is symmetric; ``overlap=0`` spans the owned dofs only."""
+    try:
+        blocks = system.shard_blocks(overlap=overlap)
+    except RuntimeError as e:
+        raise ValueError(
+            f"{who} on a DistributedSystem needs OperatorEvaluationStrategy.GLOBAL_ASSEMBLY "
+            "(per-shard local matrices are cut from the gathered CSR)"
+        ) from e
+    n = system.n_loc1
+    out = []
+    for sub, n_real in blocks:
+        nnz, n_pad = sub.indptr[-1], n - n_real
+        out.append((
+            np.concatenate([sub.data, np.ones(n_pad)]),
+            np.concatenate([sub.indices.astype(np.int64), np.arange(n_real, n, dtype=np.int64)]),
+            np.concatenate([sub.indptr.astype(np.int64), nnz + 1 + np.arange(n_pad, dtype=np.int64)]),
+        ))
+    return out, n
+
+
+def _stacked_spmv(csrs, n: int, dtype, device):
+    """The shards' local CSR matvec on stacked (P, n, n_rhs) vectors, as one
+    block-diagonal product: (spmv(x, A), (A,))."""
+    P = len(csrs)
+    data = np.concatenate([d for d, _, _ in csrs])
+    cols = np.concatenate([i + p * n for p, (_, i, _) in enumerate(csrs)])
+    offs = np.cumsum([0] + [int(pp[-1]) for _, _, pp in csrs])
+    indptr = np.concatenate([[0]] + [pp[1:] + offs[p] for p, (_, _, pp) in enumerate(csrs)])
+    A = torch.sparse_csr_tensor(
+        torch.as_tensor(indptr, device=device), torch.as_tensor(cols, device=device),
+        torch.as_tensor(data, dtype=dtype, device=device), size=(P * n, P * n), check_invariants=False,
+    )
+
+    def spmv(x, A):
+        return (A @ x.reshape(P * n, -1)).reshape(x.shape)
+
+    return spmv, (A,)
+
+
+def _schwarz_wrap(system, local_apply, consts, overlap: int):
+    """The distributed apply around a per-shard local solve: with overlap,
+    import (owner -> ghost), the local solves, export (ghost -> owner sum)
+    and the owned mask; without, the local solves alone."""
+    if overlap == 0:
+        return local_apply, consts
+
+    def apply(r, *cs):
+        z = local_apply(system._import(r.clone()), *cs)
+        return system._export(z) * system._owned_mask[:, :, None]
+
+    apply.n_levels = getattr(local_apply, "n_levels", 0)
+    return apply, consts
 
 
 def chebyshev_start(n: int, dtype, device) -> torch.Tensor:
@@ -118,9 +188,9 @@ class Jacobi:
         n_sweeps = self.sweeps
 
         def apply(r, inv, *oc):
-            z = inv[:, None] * r
+            z = inv[..., None] * r
             for _ in range(n_sweeps - 1):
-                z = z + inv[:, None] * (r - fn(z, *oc))
+                z = z + inv[..., None] * (r - fn(z, *oc))
             return z
 
         return apply, (inv, *oconsts)
@@ -149,9 +219,9 @@ class Chebyshev:
         dinv_c = torch.where(d.abs() > 1e-14, 1.0 / d, torch.ones_like(d))
 
         def scaled_op(x):
-            return dinv_c[:, None] * fn(x, *oconsts)
+            return dinv_c[..., None] * fn(x, *oconsts)
 
-        v = chebyshev_start(d.shape[0], d.dtype, d.device)
+        v = chebyshev_start(d.numel(), d.dtype, d.device).reshape(d.shape + (1,))
         for _ in range(self.power_iters):
             w = scaled_op(v)
             v = w / torch.linalg.norm(w)
@@ -163,13 +233,13 @@ class Chebyshev:
 
         def apply(r, dinv, theta, delta, *oc):
             # Chebyshev iteration on (D^-1 A) z = D^-1 r from z0 = 0
-            rs = dinv[:, None] * r
+            rs = dinv[..., None] * r
             z = rs / theta
             zp = torch.zeros_like(z)
             rho = delta / theta
             for _ in range(degree - 1):
                 rho_new = 1.0 / (2.0 * theta / delta - rho)
-                resid = rs - dinv[:, None] * fn(z, *oc)
+                resid = rs - dinv[..., None] * fn(z, *oc)
                 z_new = z + rho_new * ((2.0 / delta) * resid + rho * (z - zp))
                 zp, z, rho = z, z_new, rho_new
             return z
@@ -194,7 +264,10 @@ class BlockJacobi:
     Each node's coupled unknowns form a small dense block, inverted once at
     setup (batched Cholesky: the LSFEM normal matrix is SPD) and applied as
     one batched matmul.  Blocking follows the DofMap's node grouping when the
-    system has one, else consecutive ``block_size`` chunks."""
+    system has one, else consecutive ``block_size`` chunks.  On a
+    distributed system the blocks come from the gathered CSR and each is
+    applied on the stacked slots of the shard owning its dofs (a node's
+    dofs share one owner), so no exchange is needed."""
 
     block_size: int = 0  # 0 = derive from the system's DofMap
 
@@ -225,8 +298,26 @@ class BlockJacobi:
         return b
 
     def setup_parts(self, system):
+        if _is_distributed(system):
+            # the gathered matrix's blocks, each applied on the stacked slots of
+            # the shard owning its dofs (pad: one past the last slot)
+            d = system.diagonal()
+            data, indices, indptr, n = system.gathered_csr()
+            blocks = self._blocks(system, n)
+            Binv = self._inverses(torch.as_tensor(data, dtype=d.dtype, device=d.device), indices, indptr, n, blocks)
+            g = np.minimum(blocks, n - 1)
+            stacked = np.full(blocks.shape, system.n_shards * system.n_loc1, dtype=np.int64)
+            for p in range(system.n_shards):
+                m = (blocks < n) & (system._owner[g] == p)
+                stacked[m] = p * system.n_loc1 + system._g2l_map(p, blocks[m])
+            return _blockjacobi_stacked_apply, (Binv, torch.as_tensor(stacked, device=d.device))
         data, indices, indptr, n = _assembled_csr(system, "BlockJacobi")
         blocks = self._blocks(system, n)  # (M, K), pad = n
+        return _blockjacobi_apply, (self._inverses(data, indices, indptr, n, blocks), torch.as_tensor(blocks, device=data.device))
+
+    @staticmethod
+    def _inverses(data: torch.Tensor, indices, indptr, n: int, blocks: np.ndarray) -> torch.Tensor:
+        """(M, K, K) inverses of the CSR's node blocks ``blocks`` (M, K), padded with n."""
         M, K = blocks.shape
         # CSR keys are sorted (rows increasing, columns sorted per row); the
         # n + 1 base keeps the pad's keys distinct.  Only the block entries'
@@ -248,8 +339,12 @@ class BlockJacobi:
         L, info = torch.linalg.cholesky_ex(vals)
         if bool((info != 0).any()):
             raise RuntimeError(f"BlockJacobi: {int((info != 0).sum())} node block(s) not positive definite in {dtype}")
-        eye = torch.eye(K, dtype=dtype, device=dev).expand(M, K, K)
-        return _blockjacobi_apply, (torch.cholesky_solve(eye, L), torch.as_tensor(blocks, device=dev))
+        return torch.cholesky_solve(torch.eye(K, dtype=dtype, device=dev).expand(M, K, K), L)
+
+
+def _blockjacobi_stacked_apply(r, Binv, blk):
+    """:func:`_blockjacobi_apply` on stacked (P, L, n_rhs) vectors."""
+    return _blockjacobi_apply(r.reshape(-1, r.shape[-1]), Binv, blk).reshape(r.shape)
 
 
 def _tri_pair(fac, indices, indptr, n, dtype, device, unit_lower: bool):
@@ -269,13 +364,55 @@ class SGS:
     sweep); ``lag`` reuses the setup across up to ``lag`` reassemblies."""
 
     sweeps: int = 1
+    overlap: int = 1
     lag: int = 0
 
     def setup(self, system):
         apply, pc = self.setup_parts(system)
         return lambda r: apply(r, *pc)
 
+    def _setup_parts_distributed(self, system):
+        """Per-shard local SGS (additive Schwarz).  ``sweeps`` relaxes each
+        shard's local matrix inside the Schwarz solve (Ifpack2's
+        processor-block relaxation), which keeps the local M SPD."""
+        d = system.diagonal()
+        csrs, n = _schwarz_csrs(system, "SGS", self.overlap)
+        fwd, cf = tri.build_tri_solve_stacked(csrs, n, True, False, d.dtype, d.device)
+        bwd, cb = tri.build_tri_solve_stacked(csrs, n, False, False, d.dtype, d.device)
+        dstk = np.ones((len(csrs), n))
+        for p, (dd, ii, pp) in enumerate(csrs):
+            rows = np.repeat(np.arange(n), np.diff(pp))
+            sel = rows == ii
+            dstk[p, rows[sel]] = dd[sel]
+        nf, n_tri = len(cf), len(cf) + len(cb)
+
+        def M_loc(r, cs):
+            return bwd(fwd(r, *cs[1 : 1 + nf]) * cs[0][..., None], *cs[1 + nf : 1 + n_tri])
+
+        tri_consts = (torch.as_tensor(dstk, dtype=d.dtype, device=d.device), *cf, *cb)
+        if self.sweeps <= 1:
+
+            def local(r, *cs):
+                return M_loc(r, cs)
+
+            local.n_levels = fwd.n_levels + bwd.n_levels
+            return _schwarz_wrap(system, local, tri_consts, self.overlap)
+        spmv, scs = _stacked_spmv(csrs, n, d.dtype, d.device)
+        n_sweeps = self.sweeps
+
+        def local(r, *cs):
+            tri_cs, sp_cs = cs[: 1 + n_tri], cs[1 + n_tri :]
+            z = M_loc(r, tri_cs)
+            for _ in range(n_sweeps - 1):
+                z = z + M_loc(r - spmv(z, *sp_cs), tri_cs)
+            return z
+
+        local.n_levels = fwd.n_levels + bwd.n_levels
+        return _schwarz_wrap(system, local, (*tri_consts, *scs), self.overlap)
+
     def setup_parts(self, system):
+        if _is_distributed(system):
+            return self._setup_parts_distributed(system)
         data, indices, indptr, n = _assembled_csr(system, "SGS")
         d = system.diagonal()
         fwd, cf, bwd, cb = _tri_pair(_host_f64(data), indices, indptr, n, d.dtype, d.device, False)
@@ -311,6 +448,7 @@ class ILU0:
     sparsity; the two triangular solves run level-scheduled on the device;
     ``lag`` reuses the factors across up to ``lag`` reassemblies."""
 
+    overlap: int = 1
     lag: int = 0
 
     def setup(self, system):
@@ -318,6 +456,20 @@ class ILU0:
         return lambda r: apply(r, *pc)
 
     def setup_parts(self, system):
+        if _is_distributed(system):
+            # additive Schwarz with per-shard ILU(0) local solves
+            d = system.diagonal()
+            csrs, n = _schwarz_csrs(system, "ILU0", self.overlap)
+            facs = [(tri.ilu0_factor(dd, ii, pp, n), ii, pp) for dd, ii, pp in csrs]
+            fwd, cf = tri.build_tri_solve_stacked(facs, n, True, True, d.dtype, d.device)
+            bwd, cb = tri.build_tri_solve_stacked(facs, n, False, False, d.dtype, d.device)
+            nf = len(cf)
+
+            def local(r, *cs):
+                return bwd(fwd(r, *cs[:nf]), *cs[nf:])
+
+            local.n_levels = fwd.n_levels + bwd.n_levels
+            return _schwarz_wrap(system, local, (*cf, *cb), self.overlap)
         data, indices, indptr, n = _assembled_csr(system, "ILU0")
         fac = tri.ilu0_factor(_host_f64(data), indices, indptr, n)
         fwd, cf, bwd, cb = _tri_pair(fac, indices, indptr, n, data.dtype, data.device, True)
@@ -339,16 +491,49 @@ class ILUT:
 
     drop_tol: float = 1e-4
     fill_factor: float = 10.0
+    overlap: int = 1
     lag: int = 0
 
     def setup(self, system):
         apply, pc = self.setup_parts(system)
         return lambda r: apply(r, *pc)
 
+    def _setup_parts_distributed(self, system):
+        """Per-shard local ILUT (SciPy ``spilu`` on each Schwarz block)."""
+        import scipy.sparse as sp
+        import scipy.sparse.linalg as spla
+
+        d = system.diagonal()
+        csrs, n = _schwarz_csrs(system, "ILUT", self.overlap)
+        Ls, Us, prs, pcs = [], [], [], []
+        for dd, ii, pp in csrs:
+            ilu = spla.spilu(sp.csr_matrix((dd, ii, pp), shape=(n, n)).tocsc(),
+                             drop_tol=self.drop_tol, fill_factor=self.fill_factor)
+            L, U = ilu.L.tocsr(), ilu.U.tocsr()
+            Ls.append((L.data, L.indices, L.indptr))
+            Us.append((U.data, U.indices, U.indptr))
+            prs.append(np.asarray(ilu.perm_r, dtype=np.int64))
+            pcs.append(np.asarray(ilu.perm_c, dtype=np.int64))
+        fwd, cf = tri.build_tri_solve_stacked(Ls, n, True, True, d.dtype, d.device)
+        bwd, cb = tri.build_tri_solve_stacked(Us, n, False, False, d.dtype, d.device)
+        nf = len(cf)
+        rows = torch.arange(len(csrs), device=d.device)[:, None]
+
+        def local(r, pr, pc_, *cs):
+            t = torch.zeros_like(r)
+            t[rows, pr] = r
+            return bwd(fwd(t, *cs[:nf]), *cs[nf:])[rows, pc_]
+
+        local.n_levels = fwd.n_levels + bwd.n_levels
+        pr, pc_ = (torch.as_tensor(np.stack(a), device=d.device) for a in (prs, pcs))
+        return _schwarz_wrap(system, local, (pr, pc_, *cf, *cb), self.overlap)
+
     def setup_parts(self, system):
         import scipy.sparse as sp
         import scipy.sparse.linalg as spla
 
+        if _is_distributed(system):
+            return self._setup_parts_distributed(system)
         data, indices, indptr, n = _assembled_csr(system, "ILUT")
         A = sp.csr_matrix((_host_f64(data), np.asarray(indices), np.asarray(indptr)), shape=(n, n)).tocsc()
         ilu = spla.spilu(A, drop_tol=self.drop_tol, fill_factor=self.fill_factor)

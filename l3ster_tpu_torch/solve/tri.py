@@ -14,6 +14,12 @@ permuted so that each level's rows are contiguous: the solve starts from
 rows' entries into its own slice of x, so a level costs three launches
 (gather, multiply, ``index_add_``) and writes no scatter.  The host loop over
 levels is the cost at thousands of levels (``PERF.md``).
+
+The shard-stacked solves of a distributed system's additive-Schwarz
+preconditioners (:func:`build_tri_solve_stacked`) run as one solve of the
+block-diagonal matrix of all shards, its levels the shards' levels merged
+(the reference pads the shards' schedules to common shapes and runs them
+as one batch).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 from .hostops import ilu0_factor_csr as ilu0_factor  # re-exported under the reference's name
 from .hostops import tri_levels
 
-__all__ = ["build_tri_solve", "ilu0_factor", "tri_schedule"]
+__all__ = ["build_tri_solve", "build_tri_solve_stacked", "ilu0_factor", "tri_schedule"]
 
 
 def tri_schedule(data, indices, indptr, n: int, lower: bool, unit_diag: bool):
@@ -101,3 +107,29 @@ def build_tri_solve(data, indices, indptr, n: int, lower: bool, unit_diag: bool,
     apply.launches = 3 + 3 * len(levels)
     return apply, consts
 
+
+
+def build_tri_solve_stacked(csrs, n: int, lower: bool, unit_diag: bool, dtype, device):
+    """Shard-stacked triangular solves for additive Schwarz: ``csrs`` is a
+    list of per-shard ``(data, indices, indptr)`` over a common local size
+    ``n``, solved with no communication (Ifpack2's per-rank local solves,
+    ``solve/Ifpack2Preconditioners.hpp:85-192``).  The shards' matrices form
+    one block-diagonal matrix, whose level schedule is the shards' own levels
+    merged: level l holds every shard's level-l rows, so a solve walks the
+    deepest shard's levels once for all shards.
+
+    Returns ``(apply, consts)`` with ``apply(b, *consts) -> x`` for ``b``
+    (P, n, n_rhs); ``apply.n_levels`` and ``apply.launches`` as in
+    :func:`build_tri_solve`."""
+    P = len(csrs)
+    data = np.concatenate([np.asarray(d, dtype=np.float64) for d, _, _ in csrs])
+    indices = np.concatenate([np.asarray(i, dtype=np.int64) + p * n for p, (_, i, _) in enumerate(csrs)])
+    offs = np.cumsum([0] + [int(pp[-1]) for _, _, pp in csrs])
+    indptr = np.concatenate([[0]] + [np.asarray(pp[1:], dtype=np.int64) + offs[p] for p, (_, _, pp) in enumerate(csrs)])
+    fn, consts = build_tri_solve(data, indices, indptr, P * n, lower, unit_diag, dtype, device)
+
+    def apply(b, *cs):
+        return fn(b.reshape(P * n, -1), *cs).reshape(b.shape)
+
+    apply.n_levels, apply.launches = fn.n_levels, fn.launches
+    return apply, consts

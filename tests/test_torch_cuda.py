@@ -443,13 +443,13 @@ def _var_diffusion(inp, out):
 
 
 def _box_system(kernel, device, order=3, n_1d=3, strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE,
-                cond=lp.CondensationPolicy.NONE):
+                cond=lp.CondensationPolicy.NONE, dtype=torch.float64):
     mesh = lp.generate_mesh(lp.make_cube_mesh(np.linspace(0.0, 1.0, n_1d)), order=order)
     problem = lp.ProblemDefinition(4, [0])
     bcs = lp.BCDefinition(problem)
     bcs.define_dirichlet([5, 6], [0])
     params = lp.AlgebraicSystemParams(eval_strategy=strategy, cond_policy=cond)
-    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=torch.float64, device=device)
+    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
     kdir = lp.wrap_boundary_residual_kernel(lambda i, o: o.__setitem__(0, i.point.x), lp.KernelParams(3, 1))
     system.set_dirichlet_bc_values(kdir, [5, 6], [0])
     system.begin_assembly()
@@ -702,3 +702,84 @@ def test_linear_solve_raises_on_kernel_kind_with_grad(cuda):
     u = lp.linear_solve(fn, (ops,), bg, tol=1e-12, max_iters=3000)
     u.pow(2).sum().backward()
     assert torch.isfinite(bg.grad).all() and bg.grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards,grid", [(4, None), (4, (2, 2))])
+def test_box_apply_cuda_matches_plain(cuda, n_shards, grid):
+    """The box decomposition of the bench problem (p = 3 on 4^3 hexes; the
+    4-slab windows uneven) on the card, one z-sweep launch per shard and
+    apply, in f32 against the same box on the CPU (the plain z-sweep) in f64,
+    to 2e-5 of max |ref|; ghost and padding planes zero."""
+    from l3ster_tpu_torch.ops import zsweep
+
+    boxes = {}
+    for d, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        boxes[d] = lp.box_parallelize(_box_system(_diffusion_3d, d, n_1d=5, dtype=dt), n_shards=n_shards, grid=grid)
+    xg = torch.as_tensor(np.random.default_rng(21).normal(size=(boxes["cpu"].n_dofs, 1)))
+    x_st = boxes["cpu"]._to_slabs(xg)
+    ref = boxes["cpu"].operator()(x_st)
+    before = zsweep.launch_count
+    got = boxes[cuda].operator()(x_st.to(cuda, torch.float32))
+    torch.cuda.synchronize()
+    assert zsweep.launch_count - before == n_shards
+    assert _rel(got.cpu(), ref) < 2e-5
+    assert bool((got.cpu()[boxes["cpu"]._own_st == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_distributed_dense_const_cuda_matches_plain(cuda):
+    """The distributed ``dense_const`` apply of a small cylinder problem (p = 2,
+    4 shards) on the card, through the per-QP kernel, in f32 against the
+    same system on the CPU (the plain per-QP algebra) in f64, to 2e-5."""
+    from l3ster_tpu_torch.ops import qp
+
+    mesh = lp.generate_mesh(
+        lp.make_cylinder_in_channel_3d(
+            distz=np.linspace(-1, 1, 3), left_offset=4.0, right_offset=6.0, bottom_offset=3.0, top_offset=3.0,
+            n_circumf=16, n_radial=4, n_left=3, n_right=6, n_bottom=2, n_top=2,
+        ),
+        order=2,
+    )
+    systems = {}
+    for d, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        problem = lp.ProblemDefinition(4, [0])
+        bcs = lp.BCDefinition(problem)
+        bcs.define_dirichlet([3, 4, 5], [0])
+        params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
+        s = lp.make_distributed_system(mesh, problem, bcs, params, n_shards=4, dtype=dt, device=d)
+        s.begin_assembly()
+        s.assemble_problem(lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4)), [0])
+        s.assemble_problem(lp.wrap_boundary_equation_kernel(_adiabatic_3d, lp.KernelParams(3, 1, 4)), [1, 2, 6, 7])
+        s.end_assembly()
+        systems[d] = s
+    assert [d[0] for _, d, _ in systems[cuda]._operators()][0] == "dense_const"
+    cpu = systems["cpu"]
+    x = np.random.default_rng(22).normal(size=(cpu.n_shards, cpu.n_loc1, 1)) * cpu._owned_mask.numpy()[:, :, None]
+    fc, cc = cpu.operator_parts()
+    ref = fc(torch.as_tensor(x), *cc)
+    fg, cg = systems[cuda].operator_parts()
+    before = qp.launch_count
+    got = fg(torch.as_tensor(x, dtype=torch.float32, device=cuda), *cg)
+    torch.cuda.synchronize()
+    assert qp.launch_count > before
+    assert _rel(got.cpu(), ref) < 2e-5
+
+
+@pytest.mark.cuda
+def test_zsweep_raises_on_empty_window(cuda):
+    """A window with no element layer (a box shard padded to zero planes)
+    raises in the wrapper's setup instead of falling back to the plain
+    sweep, and launches nothing."""
+    from l3ster_tpu_torch.ops import zsweep
+
+    A = np.zeros((4, 7, 4))
+    A[1, 0, 1] = -1.0
+    before = zsweep.launch_count
+    with pytest.raises((ValueError, RuntimeError)):
+        Ng, Dg = banded_tables(3, 6, 0)
+        tabs = zsweep_tables(Ng.T, Dg.T, torch.float32, cuda)
+        b = torch.zeros((4, 1, 16), device=cuda)
+        g = ("full", torch.ones((9, 0, 16), device=cuda), torch.zeros((0, 16), device=cuda))
+        fused_z_sweep(A, b, b, b, g, tabs)
+    assert zsweep.launch_count == before
