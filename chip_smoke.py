@@ -66,10 +66,13 @@ Phases, each reported on its own line:
    var+full at the 12^3 shapes, const+diag and var+full at the shapes of
    the multigrid's order-1 levels, the v1 wrapper, the stage kernel in the six
    stage shapes of an x/y-pipeline apply (single and K-concat forms, each
-   with its band descriptor built before the timed calls) and their sums, then
-   the per-QP and fused sum-factorized kernels at the cylinder's shapes; the
-   redesigned kernels' lines carry their launch shape and resident blocks
-   per SM, and the build phase each kernel's registers and spills;
+   with its band descriptor built before the timed calls) and their sums, the
+   fused sum-factorized kernel at the cylinder's shapes, then the per-QP
+   kernel at every shape of its paths (the dense layout of the cylinder and
+   of the periodic cell, the lattice rows of the 2D cell and of the bench
+   under ``L3STER_TPU_FUSED_Z=0``) with a torch copy of the same bytes beside
+   it; the redesigned kernels' lines carry their launch shape and resident
+   blocks per SM, and the build phase each kernel's registers and spills;
 4. the lattice main path: the bench system's operator apply (f32) against
    the same system in f64 on the card, and a small system against the CPU
    path; apply time, GFLOP/s, device-busy time and idle share;
@@ -132,8 +135,6 @@ Phases, each reported on its own line:
    card against the CPU; VTK export parsed back and a save/load round trip;
 14. ``gmsh`` (nodal |T - x| < 1e-3) and ``inverse`` (the gradient against
    central differences, theta recovered by ``torch.optim.LBFGS``).
-   The per-QP kernel's lattice layout is also held against its plain
-   version at the 2D cell's and the bench's shapes in phase 3.
 15. distribution, all shards on the one card: ``box`` (after phase 5: the
    bench through ``box_parallelize`` at 2 and 4 z slabs and a (2, 2) pencil
    grid; the apply against the single one, busy and exchange times, one
@@ -155,7 +156,8 @@ wrapper and the stage kernel on their
 phase 6 systems, the per-QP kernel on phases 8-9 (after its comparison
 systems ran), the fused one on the SUM_FACT_PALLAS system; the per-QP
 kernel's lattice layout on phase 11's and phase 12's systems with the
-kernel switched on (one record each); the z-sweep's const row also counts
+kernel switched on (one record each), its dense layout also on phase 13's
+period (a record of its own); the z-sweep's const row also counts
 the ``box`` phase, the per-QP kernel's the ``distributed`` phase.  The
 second-to-last lines are the kernels' JSON record and the nvidia-smi line;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -1013,16 +1015,15 @@ def _errs(got, ref) -> tuple[float, float]:
     return err, err / scale
 
 
-def phase_kernels_unstructured(lp) -> list:
-    """The per-QP kernel and the fused sum-factorized kernel against their
-    plain versions at the cylinder's p = 4 shapes (f64 and f32), plus a small
-    dim-2 case of each; returns their JSON records."""
+def phase_kernels_unstructured(lp) -> dict:
+    """The fused sum-factorized kernel against its plain version at the
+    cylinder's p = 4 shapes (f64 and f32), plus a small dim-2 case; returns
+    its JSON record."""
     import torch
 
     from l3ster_tpu_torch.algsys.local import domain_tables
     from l3ster_tpu_torch.algsys.system import _constant_kernel_operators
     from l3ster_tpu_torch.ops.dense_eval import dense_basis_matrix
-    from l3ster_tpu_torch.ops.qp import qp_algebra_const, qp_algebra_const_plain
     from l3ster_tpu_torch.ops import sumfact_fused
     from l3ster_tpu_torch.ops.sumfact_fused import sumfact_const_apply, sumfact_const_apply_plain
 
@@ -1031,7 +1032,7 @@ def phase_kernels_unstructured(lp) -> list:
     order, E, c = CYL_ORDER, 17456, 4  # the p = 4 cylinder: 17,456 hexes, 4 unknowns
     q_order = lp.AssemblyOptions().quadrature_order(order)
     n1, q1 = order + 1, q_order // 2 + 1
-    records = []
+    record = None
     for dim in (3, 2):
         # dim 3: the main path's shapes; dim 2: a small case with 3 unknowns
         # and 4 equations, the shape of 2D diffusion
@@ -1043,74 +1044,53 @@ def phase_kernels_unstructured(lp) -> list:
             Ed, cd = 500, 3
         Q = q1**dim
         host = {
-            "G": rng.normal(size=(Ed, cd, dim + 1, Q)),
             "ji": rng.normal(size=(Ed, Q, dim, dim)) * 0.1 + np.eye(dim),
             "w": rng.uniform(0.5, 1.0, (Ed, Q)),
             "x": rng.normal(size=(Ed, n1**dim, cd)),
         }
         nnz, n_eq = int((A != 0).sum()), A.shape[1]
-        for name in ("qp_algebra", "sumfact_fused"):
-            out = {}
-            for dt in (torch.float64, torch.float32):
-                d = {k: torch.as_tensor(v, dtype=dt, device="cuda") for k, v in host.items()}
-                Ji_t = d["ji"].reshape(-1, dim, dim).permute(1, 2, 0).contiguous()
-                if name == "qp_algebra":
-                    args = (A, d["G"], Ji_t, d["w"].reshape(-1))
-                    kern = lambda a=args: qp_algebra_const(*a)  # noqa: E731
-                    plain = lambda a=args: qp_algebra_const_plain(*a)  # noqa: E731
-                    lib = lambda a=args: _library_qp(*a)  # noqa: E731
-                else:
-                    args = (A, d["ji"], d["w"], order, q_order, dim, d["x"])
-                    Ball = torch.as_tensor(
-                        dense_basis_matrix(domain_tables(lp.ElementType.HEX if dim == 3 else lp.ElementType.QUAD, order, q_order)),
-                        dtype=dt, device="cuda",
-                    )
-                    kern = lambda a=args: sumfact_const_apply(*a)  # noqa: E731
-                    plain = lambda a=args: sumfact_const_apply_plain(*a)  # noqa: E731
-                    lib = lambda d=d, B=Ball: _library_sumfact(A, d["ji"], d["w"], B, d["x"])  # noqa: E731
-                out[dt] = (kern(), kern, plain, lib, args)
-            ref = out[torch.float64][2]()
-            torch.cuda.synchronize()
-            _, err64 = _errs(out[torch.float64][0], ref)
-            abs32, err32 = _errs(out[torch.float32][0], ref)
-            _, kern32, plain32, lib32, args32 = out[torch.float32]
-            _, lib_err = _errs(lib32(), ref)
-            del ref, out
-            ok = err64 < F64_KERNEL_TOL and err32 < F32_KERNEL_TOL
-            ms, plain_ms, library_ms = (_cuda_ms(f, queued=True) for f in (kern32, plain32, lib32))
-            if name == "qp_algebra":
-                G, Ji_t, w = args32[1:]
-                nbytes = 4 * (2 * G.numel() + Ji_t.numel() + w.numel())
-                flops = _qp_flops(w.numel(), dim, cd, nnz, n_eq)
-                shape = list(G.shape)
-                replaces, src = "l3ster_tpu/ops/pallas_qp.py:94", "l3ster_tpu_torch/csrc/qp_algebra.cu"
-            else:
-                ji, w, x = args32[1], args32[2], args32[6]
-                nbytes = 4 * (2 * x.numel() + ji.numel() + w.numel() + 2 * q1 * n1)
-                flops = _sumfact_flops(Ed, n1, q1, dim, cd, nnz, n_eq)
-                shape = [Ed, n1**dim, cd, Q]
-                replaces, src = "l3ster_tpu/ops/pallas_sumfact.py:195", "l3ster_tpu_torch/csrc/sumfact_fused.cu"
-            bound_ms, bound_by = _bound(nbytes, flops)
-            occ = None
-            if name == "sumfact_fused":
-                occ = sumfact_fused.kernel_occupancy(torch.float32, A, order, q_order, dim)
-            _say(
-                "kernel_vs_plain", kernel=name, dim=dim, shape=shape, f64_rel_err=err64,
-                f64_tol=F64_KERNEL_TOL, f32_rel_err=err32, f32_abs_err=abs32, f32_tol=F32_KERNEL_TOL,
-                library_rel_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
-                share_of_bound=bound_ms / ms, launch_shape=occ, ok=ok,
+        out = {}
+        for dt in (torch.float64, torch.float32):
+            d = {k: torch.as_tensor(v, dtype=dt, device="cuda") for k, v in host.items()}
+            args = (A, d["ji"], d["w"], order, q_order, dim, d["x"])
+            Ball = torch.as_tensor(
+                dense_basis_matrix(domain_tables(lp.ElementType.HEX if dim == 3 else lp.ElementType.QUAD, order, q_order)),
+                dtype=dt, device="cuda",
             )
-            if not ok:
-                raise SystemExit(f"chip_smoke: {name} kernel disagrees with its plain version (dim {dim})")
-            if dim == 3:
-                records.append(dict(
-                    name=name, route="cuda", source=src, replaces=replaces, launches=None,
-                    max_abs_err=abs32, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=library_ms,
-                ))
-            torch.cuda.empty_cache()
-    return records
+            kern = lambda a=args: sumfact_const_apply(*a)  # noqa: E731
+            plain = lambda a=args: sumfact_const_apply_plain(*a)  # noqa: E731
+            lib = lambda d=d, B=Ball: _library_sumfact(A, d["ji"], d["w"], B, d["x"])  # noqa: E731
+            out[dt] = (kern(), kern, plain, lib, args)
+        ref = out[torch.float64][2]()
+        torch.cuda.synchronize()
+        _, err64 = _errs(out[torch.float64][0], ref)
+        abs32, err32 = _errs(out[torch.float32][0], ref)
+        _, kern32, plain32, lib32, args32 = out[torch.float32]
+        _, lib_err = _errs(lib32(), ref)
+        del ref, out
+        ok = err64 < F64_KERNEL_TOL and err32 < F32_KERNEL_TOL
+        ms, plain_ms, library_ms = (_cuda_ms(f, queued=True) for f in (kern32, plain32, lib32))
+        ji, w, x = args32[1], args32[2], args32[6]
+        nbytes = 4 * (2 * x.numel() + ji.numel() + w.numel() + 2 * q1 * n1)
+        bound_ms, bound_by = _bound(nbytes, _sumfact_flops(Ed, n1, q1, dim, cd, nnz, n_eq))
+        _say(
+            "kernel_vs_plain", kernel="sumfact_fused", dim=dim, shape=[Ed, n1**dim, cd, Q], f64_rel_err=err64,
+            f64_tol=F64_KERNEL_TOL, f32_rel_err=err32, f32_abs_err=abs32, f32_tol=F32_KERNEL_TOL,
+            library_rel_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bytes=nbytes, flops=_sumfact_flops(Ed, n1, q1, dim, cd, nnz, n_eq), bound_ms=bound_ms,
+            bound_by=bound_by, share_of_bound=bound_ms / ms,
+            launch_shape=sumfact_fused.kernel_occupancy(torch.float32, A, order, q_order, dim), ok=ok,
+        )
+        if not ok:
+            raise SystemExit(f"chip_smoke: sumfact_fused kernel disagrees with its plain version (dim {dim})")
+        if dim == 3:
+            record = dict(
+                name="sumfact_fused", route="cuda", source="l3ster_tpu_torch/csrc/sumfact_fused.cu",
+                replaces="l3ster_tpu/ops/pallas_sumfact.py:195", launches=None, max_abs_err=abs32, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            )
+        torch.cuda.empty_cache()
+    return record
 
 
 def _profile_apply(fn, x, n: int = 10) -> tuple[float, dict]:
@@ -1974,65 +1954,106 @@ def _library_qp_lattice(A, g, ji, w):
     return torch.cat([t[:1], (J * t[None, 1:]).sum(1)]).reshape(d1 * c, EQ)
 
 
-def phase_kernels_qp_lattice(lp, device: str = "cuda") -> dict:
-    """The per-QP kernel (B2) on the lattice chain's (d1*c, EQ) layout against
-    its plain version at the two lattice shapes (f64 and f32): the 2D cell
-    (Diffusion2D's A, c = 3, n_eq = 4, p = 6 on 128^2 quads at QO 22) and the
-    bench under ``L3STER_TPU_FUSED_Z=0`` (c = 4, n_eq = 7); kernel, plain and
-    library ms and the byte bound.  Returns {cell: record}."""
+def _qp_ptxas(dtype, dim: int, c: int, lattice: bool) -> list:
+    """The build's -Xptxas=-v line of the per-QP kernel's instantiation
+    (registers, spills) for one dtype, dim, channel count and layout."""
+    import torch
+
+    from l3ster_tpu_torch.ops import _cuda
+
+    f32 = dtype == torch.float32
+    C = c if f32 and c in (1, 3, 4) else 0  # the compiled channel counts (f32 only); 0: run-time
+    tag = f"_Z9qp_kernelI{'f' if f32 else 'd'}Li{dim}ELi{C}ELb{int(lattice)}E"
+    return [ln for ln in _ptxas_summary(_cuda.build_logs.get("qp_algebra", "")) if ln.startswith(tag)]
+
+
+def phase_kernels_qp(lp, device: str = "cuda", shrink: int = 1) -> dict:
+    """The per-QP kernel (B2) against its plain version (f64 and f32) at the
+    shapes of its paths: the dense (E, c, d1, Q) layout of the p = 4 cylinder
+    (the bench kernel's A) and of the periodic cell (BDF3 advection, p = 4 on
+    256 x 128 quads), and the lattice (d1*c, EQ) rows of the 2D cell
+    (Diffusion2D's A, p = 6 on 128^2 quads) and of the bench under
+    ``L3STER_TPU_FUSED_Z=0``; per shape the kernel's, plain and library ms, a
+    torch copy of as many bytes (``copy_same_bytes_ms``), the byte bound, the
+    launch shape with resident blocks per SM and the instantiation's registers
+    and spills.  Returns {cell: record}.  ``shrink`` divides every shape's
+    element or QP count (a rehearsal on the CPU)."""
     import torch
 
     from l3ster_tpu_torch.algsys.system import _constant_kernel_operators
-    from l3ster_tpu_torch.ops.qp import qp_algebra_const_lattice, qp_algebra_const_lattice_plain
+    from l3ster_tpu_torch.models.kernels import advection_bdf_2d
+    from l3ster_tpu_torch.ops import qp
 
-    q2 = lp.AssemblyOptions().quadrature_order(L2D_ORDER) // 2 + 1
-    cases = {
-        "2d": (_diffusion_2d, 2, 4, 3, (L2D_N - 1) ** 2 * q2**2),
-        "bench": (_diffusion_3d, 3, 7, 4, 6**3 * q2**3),
+    def const_A(kern, params):
+        return _constant_kernel_operators(lp.wrap_domain_equation_kernel(kern, params), 0.0)
+
+    A3 = const_A(_diffusion_3d, lp.KernelParams(3, 7, 4))
+    q1_4 = lp.AssemblyOptions().quadrature_order(CYL_ORDER) // 2 + 1
+    q1_6 = lp.AssemblyOptions().quadrature_order(L2D_ORDER) // 2 + 1
+    A_per = _constant_kernel_operators(advection_bdf_2d((1.0, 0.0), PER_DT, 11.0 / 6.0, ()), 0.0)
+    cases = {  # cell: (record name, A, layout, dim, E, Q)
+        "cylinder": ("qp_algebra", A3, "dense", 3, 17456, q1_4**3),
+        "periodic": ("qp_algebra_periodic", A_per, "dense", 2, (PER_NX - 1) * (PER_NY - 1), q1_4**2),
+        "lattice_2d": ("qp_algebra_lattice_2d", const_A(_diffusion_2d, lp.KernelParams(2, 4, 3)), "lattice", 2, 1,
+                       (L2D_N - 1) ** 2 * q1_6**2),
+        "lattice_bench": ("qp_algebra_lattice_bench", A3, "lattice", 3, 1, 6**3 * q1_6**3),
     }
     records = {}
-    for cell, (kern, dim, n_eq, c, EQ) in cases.items():
-        A = _constant_kernel_operators(lp.wrap_domain_equation_kernel(kern, lp.KernelParams(dim, n_eq, c)), 0.0)
-        d1 = dim + 1
-        rng = np.random.default_rng(40 + dim)
+    for cell, (name, A, layout, dim, E, Q) in cases.items():
+        d1, n_eq, c = A.shape
+        E, Q = (-(-E // shrink), Q) if layout == "dense" else (1, -(-Q // shrink))
+        EQ = E * Q
+        rng = np.random.default_rng(40 + len(cell))
         host = (
-            rng.normal(size=(d1 * c, EQ)),
-            rng.normal(size=(dim * dim, EQ)) * 0.1 + np.eye(dim).reshape(-1, 1),
+            rng.normal(size=(E, c, d1, Q) if layout == "dense" else (d1 * c, EQ)),
+            rng.normal(size=(dim, dim, EQ)) * 0.1 + np.eye(dim)[:, :, None],
             rng.uniform(0.5, 1.0, EQ),
         )
+        if layout == "dense":
+            kern, plain, lib = qp.qp_algebra_const, qp.qp_algebra_const_plain, _library_qp
+        else:
+            kern, plain, lib = qp.qp_algebra_const_lattice, qp.qp_algebra_const_lattice_plain, _library_qp_lattice
+            host = (host[0], host[1].reshape(dim * dim, EQ), host[2])
         d64 = tuple(torch.as_tensor(h, device=device) for h in host)
-        ref = qp_algebra_const_lattice_plain(A, *d64)
-        err64 = _errs(qp_algebra_const_lattice(A, *d64), ref)[1]
+        ref = plain(A, *d64)
+        err64 = _errs(kern(A, *d64), ref)[1]
         d32 = tuple(t.float() for t in d64)
-        abs32, err32 = _errs(qp_algebra_const_lattice(A, *d32), ref)
-        _, lib_err = _errs(_library_qp_lattice(A, *d32), ref)
+        abs32, err32 = _errs(kern(A, *d32), ref)
+        _, lib_err = _errs(lib(A, *d32), ref)
         _sync(device)
         del d64, ref
         ms, plain_ms, library_ms = (
             _cuda_ms(f, queued=True)
-            for f in (
-                lambda: qp_algebra_const_lattice(A, *d32),
-                lambda: qp_algebra_const_lattice_plain(A, *d32),
-                lambda: _library_qp_lattice(A, *d32),
-            )
+            for f in (lambda: kern(A, *d32), lambda: plain(A, *d32), lambda: lib(A, *d32))
         )
         nbytes = 4 * (2 * d32[0].numel() + d32[1].numel() + d32[2].numel())
-        bound_ms, bound_by = _bound(nbytes, _qp_flops(EQ, dim, c, int((A != 0).sum()), n_eq))
+        flops = _qp_flops(EQ, dim, c, int((A != 0).sum()), n_eq)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        src = torch.empty(nbytes // 8, device=device)  # read and written: nbytes in all
+        dst = torch.empty_like(src)
+        copy_ms = _cuda_ms(lambda: dst.copy_(src), queued=True)
+        del src, dst
+        cuda = device != "cpu"
         ok = err64 < F64_KERNEL_TOL and err32 < F32_KERNEL_TOL
         _say(
-            "kernel_vs_plain", kernel="qp_algebra", layout="lattice (d1*c, EQ)", cell=cell, shape=[d1 * c, EQ],
-            c=c, n_eq=n_eq, f64_rel_err=err64, f64_tol=F64_KERNEL_TOL, f32_rel_err=err32, f32_abs_err=abs32,
+            "kernel_vs_plain", kernel="qp_algebra", layout=layout, cell=cell, shape=list(d32[0].shape), c=c,
+            n_eq=n_eq, f64_rel_err=err64, f64_tol=F64_KERNEL_TOL, f32_rel_err=err32, f32_abs_err=abs32,
             f32_tol=F32_KERNEL_TOL, library_rel_err=lib_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms, ok=ok,
+            copy_same_bytes_ms=copy_ms, bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms,
+            launch_shape=qp.kernel_occupancy(torch.float32, A, dim, c, EQ, layout == "lattice") if cuda else None,
+            ptxas=_qp_ptxas(torch.float32, dim, c, layout == "lattice"), ok=ok,
         )
         if not ok:
-            raise SystemExit(f"chip_smoke: the per-QP kernel's lattice layout disagrees with its plain version: {cell}")
+            raise SystemExit(f"chip_smoke: the per-QP kernel disagrees with its plain version: {cell}")
         records[cell] = dict(
-            name=f"qp_algebra_lattice_{cell}", route="cuda", source="l3ster_tpu_torch/csrc/qp_algebra.cu",
+            name=name, route="cuda", source="l3ster_tpu_torch/csrc/qp_algebra.cu",
             replaces="l3ster_tpu/ops/pallas_qp.py:94", launches=None, max_abs_err=abs32, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
         )
         del d32
+        if cuda:
+            torch.cuda.empty_cache()
     return records
 
 
@@ -2262,7 +2283,7 @@ def _advection_periodic(lp, nx, ny, order, dtype, device, tol, n_steps=PER_STEPS
     return system, manager, hist[0], e / (W * H) * 100.0, steps
 
 
-def phase_periodic(lp, device: str = "cuda", nx: int = PER_NX, ny: int = PER_NY, out_dir: str = "results") -> None:
+def phase_periodic(lp, device: str = "cuda", nx: int = PER_NX, ny: int = PER_NY, out_dir: str = "results") -> int:
     """The periodic advection example refined to 256 x 128 quads at p = 4
     (525,825 nodes, 525,312 dofs after aliasing), f32, one period of 40 BDF3
     steps with CG + Jacobi to ``PER_CG_TOL``: under the example's 5% normalized L2
@@ -2270,15 +2291,20 @@ def phase_periodic(lp, device: str = "cuda", nx: int = PER_NX, ny: int = PER_NY,
     f64 on the card against the CPU path after the period (CG to 1e-13);
     then the final field exported with ``PvtuExporter`` (parsed back: 16
     subcells a p = 4 quad) and saved and loaded with ``save``/``load``
-    (equal to the saved field)."""
+    (equal to the saved field).  Returns the per-QP kernel's launches over
+    the period (``dense_const``: one an operator apply)."""
     import os
     import tempfile
     import xml.etree.ElementTree as ET
 
     import torch
 
+    from l3ster_tpu_torch.ops import qp
+
     t0 = time.perf_counter()
+    qp.launch_count = 0  # the periodic cell's path starts here
     system, man, slot, err_pct, steps = _advection_periodic(lp, nx, ny, PER_ORDER, torch.float32, device, PER_CG_TOL)
+    launches = qp.launch_count
     total_s = time.perf_counter() - t0
     kinds = [d[0] for _, d in system._operators()[1]]
     step_s = [s for s, _ in steps]
@@ -2305,7 +2331,7 @@ def phase_periodic(lp, device: str = "cuda", nx: int = PER_NX, ny: int = PER_NY,
     n_quads = (nx - 1) * (ny - 1)
     ok = bool(
         err_pct < PER_ERR_PCT and f64_diff < PER_F64_TOL and n_cells == 16 * n_quads
-        and n_points == man.mesh.n_nodes and same
+        and n_points == man.mesh.n_nodes and same and (launches > 0 or device == "cpu")
     )
     _say(
         "periodic", n_quads=n_quads, order=PER_ORDER, n_nodes=int(man.mesh.n_nodes), n_dofs=system.n_dofs,
@@ -2315,10 +2341,11 @@ def phase_periodic(lp, device: str = "cuda", nx: int = PER_NX, ny: int = PER_NY,
         iterations_median=statistics.median(iters), iterations_max=max(iters),
         small_f64_card_vs_cpu_max_abs=f64_diff, small_tol=PER_F64_TOL,
         small_l2_err_pct=[small[device][1], small["cpu"][1]], vtu_cells=n_cells, vtu_points=n_points,
-        export_s=export_s, checkpoint_bytes=ckpt_bytes, checkpoint_round_trip_equal=same, ok=ok,
+        export_s=export_s, checkpoint_bytes=ckpt_bytes, checkpoint_round_trip_equal=same, qp_launches=launches, ok=ok,
     )
     if not ok:
         raise SystemExit("chip_smoke: the periodic advection phase failed its checks")
+    return launches
 
 
 def _write_gmsh_v4_square(path: str, n: int) -> None:
@@ -3139,8 +3166,8 @@ def main() -> int:
     record, var_record = phase_kernels(lp)
     v1_record = phase_kernels_v1(lp)
     stage_record = phase_kernels_stages(lp)
-    records = phase_kernels_unstructured(lp)
-    qp_lattice = phase_kernels_qp_lattice(lp)
+    sumfact_record = phase_kernels_unstructured(lp)
+    qp_records = phase_kernels_qp(lp)
     torch.cuda.empty_cache()
     state = phase_main_path(lp)
     jacobi_iters = phase_solve(lp, state)
@@ -3152,7 +3179,7 @@ def main() -> int:
     launches = phase_switches(lp, state)  # phase 6
     v1_record["launches"] = launches["zsweep_v1"]
     stage_record["launches"] = launches["stage_matmul"]
-    qp_lattice["bench"]["launches"] = phase_bench_nonfused(lp, state)
+    qp_records["lattice_bench"]["launches"] = phase_bench_nonfused(lp, state)
     del state
     torch.cuda.empty_cache()
     state = phase_var_path(lp, 7, "var_apply")
@@ -3171,26 +3198,27 @@ def main() -> int:
     phase_preconditioners(lp)
     state = phase_unstructured_main_path(lp)
     cylinder_iters = phase_unstructured_solve(lp, state)
-    records[0]["launches"] = qp.launch_count  # unstructured main path: phases 8 and 9
-    records[1]["launches"] = sumfact_fused.launch_count
+    qp_records["cylinder"]["launches"] = qp.launch_count  # unstructured main path: phases 8 and 9
+    sumfact_record["launches"] = sumfact_fused.launch_count
     dist_launches, dist_state = phase_distributed(lp, state, cylinder_iters)
-    records[0]["launches"] += dist_launches  # and the distributed cylinder
+    qp_records["cylinder"]["launches"] += dist_launches  # and the distributed cylinder
     del state
     torch.cuda.empty_cache()
     phase_restart(lp, dist_state)
     del dist_state
     torch.cuda.empty_cache()
     phase_distributed_assembled(lp)
-    qp_lattice["2d"]["launches"] = phase_lattice_2d(lp)
+    qp_records["lattice_2d"]["launches"] = phase_lattice_2d(lp)
     torch.cuda.empty_cache()
-    phase_periodic(lp)
+    qp_records["periodic"]["launches"] = phase_periodic(lp)
     phase_gmsh(lp)
     phase_inverse(lp)
     torch.cuda.empty_cache()
     karman_state = phase_karman(lp)
     phase_karman_distributed(lp, karman_state)
     del karman_state
-    kernels = [record, var_record, v1_record, stage_record] + records + [qp_lattice["2d"], qp_lattice["bench"]]
+    kernels = [record, var_record, v1_record, stage_record, qp_records["cylinder"], sumfact_record]
+    kernels += [qp_records[k] for k in ("lattice_2d", "lattice_bench", "periodic")]
     for rec in kernels:
         if rec["launches"] <= 0:
             raise SystemExit(f"chip_smoke: the main path never launched the {rec['name']} kernel")

@@ -49,6 +49,7 @@ __all__ = [
     "local_apply_direct",
     "local_apply_dense_const",
     "local_apply_dense_packed",
+    "local_apply_sumfact",
     "local_apply_sumfact_const",
     "local_apply_sumfact_packed",
     "pack_sumfact_operator",
@@ -478,3 +479,14 @@ def local_apply_sumfact_packed(
     g = torch.cat([vals.reshape(1, EQ, c), rders.transpose(0, 1).reshape(dim, EQ, c)]).transpose(1, 2)
     T = _qp_algebra_packed(A_t, Ji_t, w_t, g).permute(2, 0, 1).reshape(E, EQ // E, dim + 1, c)
     return sumfact_transpose(T[:, :, 0], T[:, :, 1:].transpose(1, 2), N1, D1, dim)
+
+
+def local_apply_sumfact(
+    A: torch.Tensor, geom: ElementGeometry, order: int, q_order: int, dim: int, x_loc: torch.Tensor
+) -> torch.Tensor:
+    """Sum-factorized local apply for Quad/Hex elements with A (E, Q, dim+1,
+    n_eq, n_unk) per QP: :func:`pack_sumfact_operator` followed by
+    :func:`local_apply_sumfact_packed`, on the inputs' device."""
+    A_t, Ji_t, w_t = pack_sumfact_operator(A, geom, dim)
+    return local_apply_sumfact_packed(A_t, Ji_t, w_t, order, q_order, dim, x_loc)
+

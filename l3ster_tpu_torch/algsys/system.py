@@ -610,6 +610,11 @@ class _SystemBase:
     def raw_parts(self, layout: str = "dof"):
         raise NotImplementedError
 
+    def raw_operator(self):
+        """The unconstrained operator as one callable x -> A x, over :meth:`raw_parts`."""
+        fn, consts = self.raw_parts()
+        return lambda x: fn(x, *consts)
+
     def diagonal(self) -> torch.Tensor:
         raise NotImplementedError
 

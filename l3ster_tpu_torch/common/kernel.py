@@ -189,6 +189,13 @@ class EquationKernel:
             rhs = _as_tensor(rhs_raw, dtype, device).reshape(p.n_equations, p.n_rhs)
         return ops, rhs
 
+    def __call__(self, inputs, dtype=torch.float64, device=None):
+        """:meth:`evaluate` with the systems' defaults: float64, on the card
+        unless ``device`` names another."""
+        from ..algsys.system import _resolve_device
+
+        return self.evaluate(inputs, dtype, _resolve_device(device))
+
 
 @dataclass(frozen=True)
 class ResidualKernel:
@@ -206,6 +213,13 @@ class ResidualKernel:
             self.fn(inputs, out)
             return out.densify(dtype, device)
         return _as_tensor(self.fn(inputs), dtype, device).reshape(p.n_equations, p.n_rhs)
+
+    def __call__(self, inputs, dtype=torch.float64, device=None):
+        """:meth:`evaluate` with the systems' defaults: float64, on the card
+        unless ``device`` names another."""
+        from ..algsys.system import _resolve_device
+
+        return self.evaluate(inputs, dtype, _resolve_device(device))
 
 
 def _n_args(fn: Callable) -> int:

@@ -16,16 +16,24 @@ from ..basis.tables import basis_at_points
 from ..mesh.traits import ElementType, native_dim, side_axis_sign
 
 __all__ = [
+    "corner_map_tables",
     "geometry_tables",
     "jacobians",
     "small_det",
     "small_inv",
+    "map_to_physical",
+    "physical_basis_derivatives",
     "boundary_normals_and_measure",
 ]
 
 
 @lru_cache(maxsize=None)
-def _corner_map_tables(et: ElementType, pts_key) -> tuple[np.ndarray, np.ndarray]:
+def corner_map_tables(et: ElementType, pts_key) -> tuple[np.ndarray, np.ndarray]:
+    """(N1, dN1) of the order-1 geometric map at the given points.
+
+    ``pts_key`` is a hashable (bytes, shape) snapshot of float64 points, as
+    :func:`geometry_tables` makes it.
+    """
     raw, shape = pts_key
     pts = np.frombuffer(raw, dtype=np.float64).reshape(shape)
     b = basis_at_points(et, 1, pts)
@@ -35,7 +43,7 @@ def _corner_map_tables(et: ElementType, pts_key) -> tuple[np.ndarray, np.ndarray
 def geometry_tables(et: ElementType, pts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Corner-map values/derivatives at reference points (cached)."""
     pts = np.ascontiguousarray(pts, dtype=np.float64)
-    return _corner_map_tables(et, (pts.tobytes(), pts.shape))
+    return corner_map_tables(et, (pts.tobytes(), pts.shape))
 
 
 def jacobians(dN1: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
@@ -94,6 +102,20 @@ def small_inv(J: torch.Tensor) -> torch.Tensor:
         adj = torch.stack([torch.stack(row, dim=-1) for row in cof], dim=-2)
         return adj / det
     raise ValueError(f"small_inv supports d <= 3, got {d}")
+
+
+def map_to_physical(N1: np.ndarray, verts: torch.Tensor) -> torch.Tensor:
+    """Physical coordinates of the reference points; (n_pts, dim), on verts' device."""
+    return torch.einsum("qv,vi->qi", torch.as_tensor(N1, dtype=verts.dtype, device=verts.device), verts)
+
+
+def physical_basis_derivatives(J: torch.Tensor, ref_ders: np.ndarray) -> torch.Tensor:
+    """dN/dx[q, i, n] from reference derivatives via J^{-T}.
+
+    ref_ders: (n_qp, dim, n_nodes) static.  Returns (n_qp, dim, n_nodes) on J's device.
+    """
+    JinvT = small_inv(J).transpose(-1, -2)
+    return torch.einsum("qij,qjn->qin", JinvT, torch.as_tensor(ref_ders, dtype=J.dtype, device=J.device))
 
 
 def boundary_normals_and_measure(

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["lagrange_values", "lagrange_derivatives"]
+__all__ = ["lagrange_values", "lagrange_derivatives", "lagrange_diff_matrix"]
 
 
 def lagrange_values(nodes: np.ndarray, x: np.ndarray) -> np.ndarray:
@@ -48,3 +48,8 @@ def lagrange_derivatives(nodes: np.ndarray, x: np.ndarray) -> np.ndarray:
                     term *= (x - nodes[k]) / (nodes[j] - nodes[k])
             out[:, j] += term
     return out
+
+
+def lagrange_diff_matrix(nodes: np.ndarray) -> np.ndarray:
+    """Differentiation matrix D with D[i, j] = l_j'(x_i) at the nodes themselves."""
+    return lagrange_derivatives(nodes, nodes)

@@ -14,23 +14,37 @@ writes two layouts in place:
 
 Each dispatcher runs its plain version (the torch ``_qp_algebra_const`` chain
 of ``algsys/local.py``) on a CPU tensor, and launches the kernel on a CUDA
-tensor or raises.  ``launch_count`` counts kernel launches of both layouts.
+tensor or raises.  The kernel walks tiles of QPs through a shared-memory
+ring on a persistent grid: :func:`launch_shape` sizes the ring,
+:func:`kernel_occupancy` adds the card's resident blocks and the grid.
+``launch_count`` counts kernel launches of both layouts.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ._cuda import SMEM_LIMIT, declare_coefficients, device_and_stream, load, no_autograd, upload_coefficients
+from ._cuda import (
+    SMEM_LIMIT,
+    coefficient_tables,
+    declare_coefficients,
+    device_and_stream,
+    load,
+    no_autograd,
+    upload_coefficients,
+)
 
 __all__ = [
     "qp_algebra_const",
     "qp_algebra_const_plain",
     "qp_algebra_const_lattice",
     "qp_algebra_const_lattice_plain",
+    "launch_shape",
+    "kernel_occupancy",
 ]
 
 launch_count = 0  # kernel launches; read and reset by callers that check the path
@@ -89,14 +103,79 @@ def qp_algebra_const_lattice(A_const, g: torch.Tensor, ji: torch.Tensor, w: torc
     return _launch(A_const, g, ji.reshape(d1 - 1, d1 - 1, -1), w, c, d1, g.shape[1], lattice=True)
 
 
+RING = 3  # tiles of the kernel's ring at most: two in flight while one computes
+
+
 def _declare(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     declare_coefficients(lib, "qp")
     for name in ("qp_f32", "qp_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 4 + [ci] * 8 + [vp]
+        fn.argtypes = [vp] * 4 + [ci] * 8 + [ctypes.c_uint] + [ci] * 4 + [vp]
         fn.restype = ci
-    lib.qp_threads.restype = ci
+    lib.qp_occupancy.argtypes = [ci] * 6
+    for name in ("qp_threads", "qp_tile", "qp_occupancy", "qp_sm_count"):
+        getattr(lib, name).restype = ci
+    lib.qp_sm_count.argtypes = [ci]
+
+
+def _library():
+    return load("qp_algebra", _declare)
+
+
+def _tile_shape() -> tuple[int, int]:
+    """(threads a block, QPs a tile) of the kernel, compile-time constants of
+    ``csrc/qp_algebra.cu``."""
+    lib = _library()
+    return lib.qp_threads(), lib.qp_tile()
+
+
+def fast_div(d: int) -> tuple[int, int]:
+    """(mul, shr) with ``n // d == (n * mul >> 32) >> shr`` for 0 <= n < 2^31
+    (``mul == 0``: d == 1), the kernel's division of a QP index by Q."""
+    if d == 1:
+        return 0, 0
+    p = 31 + (d - 1).bit_length()
+    return -(-(1 << p) // d), p - 32
+
+
+def launch_shape(dim: int, c: int, n_eq: int, n_ent: int, itemsize: int, tile: int) -> dict:
+    """The kernel's tile ring for A's ``n_ent`` nonzero entries: ``nbuf``
+    tiles of ``tile`` QPs (RING where they fit, else fewer) and ``smem``
+    bytes.  Raises where one tile does not fit."""
+    S = (dim + 1) * c
+    R = S + dim * dim + 1  # rows of a tile: G's slots, the J^-1 planes, w
+    for nbuf in range(RING, 0, -1):
+        smem = (nbuf * R + n_eq) * tile * itemsize + 8 * R + (2 * n_ent + S) * itemsize + (4 * n_ent + 2 * S) * 4
+        if smem <= SMEM_LIMIT:
+            return dict(tile=tile, rows=R, nbuf=nbuf, smem=smem)
+    raise ValueError(f"qp_algebra_const needs {smem} bytes of shared memory for one tile; the limit is {SMEM_LIMIT}")
+
+
+@lru_cache(maxsize=64)
+def _resident(f64: bool, dim: int, c: int, lattice: bool, smem: int, dev: int) -> tuple[int, int]:
+    """(resident blocks per SM of the instantiation, SMs of the card)."""
+    lib = _library()
+    blocks, sms = lib.qp_occupancy(int(f64), dim, c, int(lattice), smem, dev), lib.qp_sm_count(dev)
+    if blocks <= 0 or sms <= 0:
+        raise RuntimeError(f"qp_algebra occupancy query failed: {blocks}, {sms}")
+    return blocks, sms
+
+
+def kernel_occupancy(dtype, A_const, dim: int, c: int, EQ: int, lattice: bool) -> dict:
+    """The launch shape on the current card: the tile ring, resident blocks per
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the persistent
+    grid over ``EQ`` QPs."""
+    A = np.ascontiguousarray(A_const, dtype=np.float64)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    threads, tile = _tile_shape()
+    sh = launch_shape(dim, c, A.shape[1], len(coefficient_tables(A)[3]), itemsize, tile)
+    blocks, sms = _resident(dtype == torch.float64, dim, c, lattice, sh["smem"], torch.cuda.current_device())
+    tiles = -(-EQ // tile)
+    return dict(
+        sh, threads=threads, blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32, tiles=tiles,
+        grid=min(tiles, blocks * sms),
+    )
 
 
 def _launch(A_const, G, Ji_t, w_t, c: int, d1: int, Q: int, lattice: bool):
@@ -104,7 +183,7 @@ def _launch(A_const, G, Ji_t, w_t, c: int, d1: int, Q: int, lattice: bool):
     stack G (d1*c, EQ) (then Q is EQ, one element)."""
     global launch_count
     no_autograd("qp_algebra", G, Ji_t, w_t)
-    lib = load("qp_algebra", _declare)
+    lib = _library()
     A = np.ascontiguousarray(A_const, dtype=np.float64)
     dim, EQ = d1 - 1, G.numel() // (c * d1)
     if dim not in (2, 3) or A.ndim != 3 or A.shape[0] != d1 or A.shape[2] != c:
@@ -119,22 +198,25 @@ def _launch(A_const, G, Ji_t, w_t, c: int, d1: int, Q: int, lattice: bool):
             f"qp_algebra_const: Ji_t {tuple(Ji_t.shape)} / w_t {tuple(w_t.shape)} do not match "
             f"E*Q = {EQ}, dim = {dim}"
         )
-    if G.numel() >= 2**31:
-        raise ValueError("qp_algebra_const: G has 2^31 or more values")
-    n_eq = A.shape[1]
-    smem = (d1 * c + n_eq) * lib.qp_threads() * G.element_size()
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"qp_algebra_const needs {smem} bytes of shared memory; the limit is {SMEM_LIMIT}")
+    if max(G.numel(), Ji_t.numel()) >= 2**31:
+        raise ValueError("qp_algebra_const: G or Ji_t has 2^31 or more values")
+    n_eq, es = A.shape[1], G.element_size()
+    tile = _tile_shape()[1]
+    sh = launch_shape(dim, c, n_eq, len(coefficient_tables(A)[3]), es, tile)
     G, Ji_t, w_t = G.contiguous(), Ji_t.contiguous(), w_t.contiguous()
     out = torch.empty_like(G)
     if EQ == 0:
         return out
     dev, stream = device_and_stream(G)
     upload_coefficients(lib, "qp", A, dev, stream, _uploaded)
+    blocks, sms = _resident(G.dtype == torch.float64, dim, c, lattice, sh["smem"], dev)
+    # 16-byte copies where every row starts 16-byte aligned and no vector straddles an element
+    vec = Q % (16 // es) == 0 and all(t.data_ptr() % 16 == 0 for t in (G, Ji_t, w_t, out))
+    qmul, qshr = fast_div(Q)
     fn = lib.qp_f32 if G.dtype == torch.float32 else lib.qp_f64
     rc = fn(
-        G.data_ptr(), Ji_t.data_ptr(), w_t.data_ptr(), out.data_ptr(),
-        EQ, Q, c, dim, n_eq, int(lattice), smem, dev, stream,
+        G.data_ptr(), Ji_t.data_ptr(), w_t.data_ptr(), out.data_ptr(), EQ, Q, c, dim, n_eq, int(lattice),
+        int(vec), sh["nbuf"], qmul, qshr, min(-(-EQ // tile), blocks * sms), sh["smem"], dev, stream,
     )
     if rc != 0:
         raise RuntimeError(f"qp_algebra kernel launch failed: CUDA error {rc}")

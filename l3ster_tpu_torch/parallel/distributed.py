@@ -538,6 +538,10 @@ class DistributedSystem(_SystemBase):
             return self._csr
         return self._operators()
 
+    def raw_operator(self):
+        """The constrained distributed operator is built in operator()."""
+        raise NotImplementedError("DistributedSystem uses operator() directly")
+
     def raw_parts(self, layout: str = "dof"):
         """(fn, (state,)): the unconstrained operator as fn(x, state), state
         being this assembly's operator data (kept by a lagged preconditioner)."""

@@ -17,7 +17,7 @@ import numpy as np
 from ..math.gauss import gauss_legendre
 from ..mesh.traits import ElementType, native_dim
 
-__all__ = ["QuadratureType", "Quadrature", "get_quadrature"]
+__all__ = ["QuadratureType", "Quadrature", "required_quadrature_order", "get_quadrature"]
 
 
 class QuadratureType(IntEnum):
@@ -38,6 +38,11 @@ class Quadrature:
     @property
     def dim(self) -> int:
         return self.points.shape[1]
+
+
+def required_quadrature_order(order: int, value_order: int = 1, derivative_order: int = 1) -> int:
+    """Quadrature order needed to integrate the least-squares products exactly."""
+    return 2 * (value_order * order + derivative_order * max(order - 1, 0))
 
 
 @lru_cache(maxsize=None)

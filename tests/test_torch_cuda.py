@@ -144,6 +144,82 @@ def test_qp_kernel_lattice_layout_matches_plain(cuda, dim, c, n_eq):
         assert got.shape == g.shape and _rel(got.cpu(), ref) < tol, dt
 
 
+def _qp_case(rng, layout, dim, c, n_eq, E, Q):
+    """Inputs of the per-QP kernel in one layout, f64 on the CPU: A, G, J^-1
+    (dim, dim, EQ) and w."""
+    EQ = E * Q
+    A = _sparse_A(rng, dim + 1, n_eq, c)
+    G = rng.normal(size=(E, c, dim + 1, Q) if layout == "dense" else ((dim + 1) * c, EQ))
+    ji = rng.normal(size=(dim, dim, EQ)) * 0.1 + np.eye(dim)[:, :, None]
+    return A, G, ji, rng.uniform(0.5, 1.0, EQ)
+
+
+def _on_card(x: np.ndarray, dt, offset: int):
+    """x on the card in dtype dt, as a view ``offset`` values into its storage."""
+    flat = torch.zeros(x.size + offset, dtype=dt, device="cuda")
+    flat[offset:] = torch.as_tensor(x.reshape(-1), dtype=dt)
+    return flat[offset:].view(x.shape)
+
+
+def _qp_check(layout, A, G, ji, w, offset=0):
+    """Each dtype's kernel result against the plain version (f64 on the CPU),
+    one launch a call; ``offset`` > 0 gives inputs that are not 16-byte aligned."""
+    from l3ster_tpu_torch.ops import qp
+
+    dim = ji.shape[0]
+    if layout == "dense":
+        kern, plain, args = qp_algebra_const, qp_algebra_const_plain, (G, ji, w)
+    else:
+        kern, plain, args = qp_algebra_const_lattice, qp_algebra_const_lattice_plain, (G, ji.reshape(dim * dim, -1), w)
+    ref = plain(A, *(torch.as_tensor(a) for a in args))
+    for dt, tol in TOLS:
+        n0 = qp.launch_count
+        got = kern(A, *(_on_card(a, dt, offset) for a in args))
+        torch.cuda.synchronize()
+        assert qp.launch_count == n0 + 1
+        assert got.shape == ref.shape and _rel(got.cpu(), ref) < tol, dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "lattice"])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("c", [1, 3, 4, 5])
+@pytest.mark.parametrize("E, Q", [(37, 64), (9, 125), (3, 27)])
+def test_qp_kernel_layouts_channels_and_widths(cuda, layout, dim, c, E, Q):
+    """The per-QP kernel in both layouts at the compiled channel counts (1, 3,
+    4) and one run-time count (5), with 16-byte copies (Q = 64), single-value
+    copies (Q = 125, E*Q odd) and fewer QPs than one tile (E*Q = 81), against
+    its plain version."""
+    rng = np.random.default_rng(100 * dim + 10 * c + Q)
+    _qp_check(layout, *_qp_case(rng, layout, dim, c, 2 * c + 1, E, Q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "lattice"])
+@pytest.mark.parametrize("dim, c, n_eq", [(2, 3, 4), (3, 4, 7)])
+def test_qp_kernel_unaligned_views(cuda, layout, dim, c, n_eq):
+    """Inputs that are views one value into their storage (not 16-byte
+    aligned) take the single-value copies of the same kernel."""
+    rng = np.random.default_rng(7 + dim)
+    _qp_check(layout, *_qp_case(rng, layout, dim, c, n_eq, 21, 64), offset=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "lattice"])
+@pytest.mark.parametrize("c, n_eq, nbuf", [(8, 15, 2), (12, 20, 1)])
+def test_qp_kernel_shorter_rings(cuda, layout, c, n_eq, nbuf):
+    """Wide multi-RHS stackings (dim 3): in f64 the full ring does not fit in
+    shared memory and the kernel runs a ring of two tiles (refilled after the
+    stores) or of one."""
+    from l3ster_tpu_torch.ops._cuda import coefficient_tables
+    from l3ster_tpu_torch.ops.qp import _tile_shape, launch_shape
+
+    rng = np.random.default_rng(c)
+    case = _qp_case(rng, layout, 3, c, n_eq, 5, 64)
+    assert launch_shape(3, c, n_eq, len(coefficient_tables(case[0])[3]), 8, _tile_shape()[1])["nbuf"] == nbuf
+    _qp_check(layout, *case)
+
+
 def _check_sumfact(cuda, dim, order, qo, E, c, n_eq, seed):
     """The fused kernel against its plain version (f64 on the CPU), in each
     dtype whose element fits one block (p = 6 in 3D fits only in f32)."""

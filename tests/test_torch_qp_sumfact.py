@@ -169,3 +169,25 @@ def test_coefficient_tables_rebuild_A(dim):
             by_slot[s // c, teq[e], s % c] = tval[e]
     np.testing.assert_array_equal(by_eq, A)
     np.testing.assert_array_equal(by_slot, A)
+
+
+def test_qp_kernel_division_and_launch_shape():
+    """The per-QP kernel's host side: the multiply-shift division by Q that
+    locates a QP's element (exact for every index below 2^31), and the ring of
+    256-QP tiles (the kernel's tile): RING tiles where they fit in shared
+    memory, else two, else one, else a raise."""
+    from l3ster_tpu_torch.ops._cuda import SMEM_LIMIT
+    from l3ster_tpu_torch.ops.qp import RING, fast_div, launch_shape
+
+    rng = np.random.default_rng(0)
+    for d in list(range(1, 600)) + [4096, 2**20 + 7, 2**31 - 1]:
+        mul, shr = fast_div(d)
+        assert 0 <= mul < 2**32
+        for n in [0, d - 1, d, 2**31 - 1] + list(rng.integers(0, 2**31, 50)):
+            n = int(n)
+            assert (n if mul == 0 else (n * mul >> 32) >> shr) == n // d, (d, n)
+    sh = launch_shape(3, 4, 7, 15, 4, 256)  # the bench's A in f32
+    assert (sh["rows"], sh["nbuf"], sh["tile"]) == (26, RING, 256) and sh["smem"] <= SMEM_LIMIT
+    assert launch_shape(3, 8, 15, 240, 8, 256)["nbuf"] == 2 and launch_shape(3, 12, 20, 488, 8, 256)["nbuf"] == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        launch_shape(3, 16, 28, 900, 8, 256)
