@@ -24,7 +24,7 @@ and the unsteady 2D Karman vortex street:
   BlockJacobi and Chebyshev, its interiors recovered; and the
   preconditioner family (Richardson, Jacobi with sweeps, Chebyshev,
   BlockJacobi, SGS, ILU0 under CG; Jacobi, ILU0, ILUT under GMRES) on the
-  condensed system at p = 4 on 4^3 hexes, with its level-scheduled
+  condensed system at p = 4 on 3^3 hexes, with its level-scheduled
   triangular solves (plain torch: no CUDA kernel of the port lies on
   these two paths);
 * the unstructured path on the cylinder-in-channel mesh at its default size
@@ -146,7 +146,20 @@ Phases, each reported on its own line:
    ``distributed_assembled`` (the preconditioners phase's problem on 4
    shards: the gathered CSR against the single one, Schwarz SGS and ILUT,
    BlockJacobi, Klu2) and ``karman_distributed`` (after phase 10: its
-   first three BDF2 steps on 4 shards, against the single system's).
+   first three BDF2 steps on 4 shards, against the single system's);
+16. ``multi_device``: shards placed with ``devices=`` on the cards (the
+   first min(D, 4) of D >= 2 cards, else two placement groups on the one
+   card; the phase prints how many distinct cards it used):
+   ``multi_device_box`` (after ``box``: the bench at 2 z slabs, its apply
+   against the one-group box's, apply ms, busy ms per card, the plane
+   exchanges' ms beside the one group's, CG + box LowOrderMG within
+   BOX_MG_SLACK of the one group's count) and ``multi_device_distributed``
+   (after ``distributed``: its cylinder on 4 shards, B2 held against its
+   plain version at each group's shape on its card, the apply against the
+   one-group system's, apply ms, busy ms per card, the halo exchange's ms
+   with the cross-group copies, CG + Jacobi within DIST_CG_SLACK of the one
+   group's count); each fails unless its kernel (B1, B2) launched on every
+   group's card.
 
 Each kernel's launch count is set to 0 just before the path it is counted
 on and read just after it: the z-sweep's const mode on phases 4-5 and then
@@ -158,7 +171,8 @@ systems ran), the fused one on the SUM_FACT_PALLAS system; the per-QP
 kernel's lattice layout on phase 11's and phase 12's systems with the
 kernel switched on (one record each), its dense layout also on phase 13's
 period (a record of its own); the z-sweep's const row also counts
-the ``box`` phase, the per-QP kernel's the ``distributed`` phase.  The
+the ``box`` and ``multi_device_box`` phases, the per-QP kernel's the
+``distributed`` and ``multi_device_distributed`` phases.  The
 second-to-last lines are the kernels' JSON record and the nvidia-smi line;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line.  Run: ``python3 chip_smoke.py`` (one card).
@@ -943,13 +957,16 @@ def _cylinder_mesh(lp, order: int, small: bool):
     return lp.generate_mesh(lp.make_cylinder_in_channel_3d(**kw), order=order)
 
 
-def _build_cylinder(lp, mesh, strategy, dtype, device, n_shards=0):
+def _build_cylinder(lp, mesh, strategy, dtype, device, n_shards=0, devices=None):
     problem = lp.ProblemDefinition(4, [0])
     bcs = lp.BCDefinition(problem)
     bcs.define_dirichlet([3, 4, 5], [0])
     params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
     if n_shards:
-        system = lp.make_distributed_system(mesh, problem, bcs, params, n_shards=n_shards, dtype=dtype, device=device)
+        system = lp.make_distributed_system(
+            mesh, problem, bcs, params, n_shards=n_shards, dtype=dtype, device=None if devices else device,
+            devices=devices,
+        )
     else:
         system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=dtype, device=device)
     kd = lp.wrap_domain_equation_kernel(_diffusion_3d, lp.KernelParams(3, 7, 4))
@@ -1406,7 +1423,8 @@ COND_NODAL_TOL = 1e-3
 # (|q - (1, 0, 0)| near 3e-2 at this size, in f64 alike), and f32 CG keeps
 # lowering its recursive residual below 1e-7
 COND_CHECK_TOL = 1e-8
-PRE_ORDER, PRE_N1D = 4, 5  # the preconditioners phase: p = 4 on 4^3 hexes, condensed
+PRE_ORDER, PRE_N1D = 4, 4  # the preconditioners phase: p = 4 on 3^3 hexes, condensed (host-bound: sized
+# to keep the script inside its time limit)
 JACOBI2_DAMPING = 0.5  # two damped Jacobi sweeps stay SPD (CG-safe) while damping * lambda_max(D^-1 A) < 2
 # CG and GMRES + ILU0 stop at this fraction of their Jacobi runs' iterations:
 # ILU(0) has negative pivots here and converges at no cap (1.2e-2 and
@@ -1650,7 +1668,7 @@ def _ilu0_negative_pivots(system) -> int:
 def phase_preconditioners(lp, device: str = "cuda", order: int = PRE_ORDER, n_1d: int = PRE_N1D,
                           jacobi2_damping: float = JACOBI2_DAMPING) -> None:
     """The preconditioner family on the bench problem condensed at p = 4 on
-    4^3 hexes (f32): CG from zero to 1e-6 with Richardson, Jacobi, two damped
+    3^3 hexes (f32): CG from zero to 1e-6 with Richardson, Jacobi, two damped
     Jacobi sweeps, Chebyshev, BlockJacobi, SGS, SGS(sweeps=2) and ILU0, then
     GMRES with Jacobi, ILU0 and ILUT(drop_tol=1e-5).  For each: iterations,
     setup seconds split into the host factorization, the level analysis and
@@ -2903,7 +2921,235 @@ def phase_distributed(lp, state: dict, single_iters: int, device: str = "cuda", 
     )
     if not ok:
         raise SystemExit("chip_smoke: the distributed phase failed its checks")
-    return launches, {"system": dist, "manager": man}
+    return launches, {"system": dist, "manager": man, "iterations": r.num_iters}
+
+
+def _multi_devices(n: int, device: str = "cuda") -> list:
+    """The placement groups of the multi-device phases: the first min(D, n)
+    cards where the machine has D >= 2, else two groups on the one card
+    (on the CPU rehearsal, two "cpu" groups)."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return [device, device]
+    D = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(min(D, n))] if D >= 2 else ["cuda:0", "cuda:0"]
+
+
+def _sync_all() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _wall_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Milliseconds per fn() call on the host clock with every card
+    synchronized around the calls (a CUDA event pair times one device's
+    stream only)."""
+    for _ in range(warm):
+        fn()
+    _sync_all()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync_all()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _busy_by_device(fn, x, n: int = 5) -> dict:
+    """Device-busy ms per fn(x) call on each card: torch.profiler's CUDA
+    kernel and copy time, summed by device index."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(x)
+        _sync_all()
+    busy: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.device_index] = busy.get(e.device_index, 0.0) + e.self_device_time_total / 1e3 / n
+    return {f"cuda:{k}": v for k, v in sorted(busy.items())}
+
+
+def _launched_everywhere(by_device: dict, devices: list) -> bool:
+    """Every placement group's card launched the kernel (counts by index)."""
+    import torch
+
+    want = {torch.device(d).index or 0 for d in devices if torch.device(d).type == "cuda"}
+    return all(by_device.get(i, 0) > 0 for i in want)
+
+
+def phase_multi_device_distributed(lp, state: dict, dist_state: dict, device: str = "cuda",
+                                   n_shards: int = DIST_SHARDS) -> int:
+    """``multi_device``, the distributed part: the cylinder of the
+    ``distributed`` phase on ``n_shards`` shards placed with ``devices=`` over
+    the cards (:func:`_multi_devices`: distinct cards where there are two or
+    more, else two groups on the one card), f32, AUTO (``dense_const`` + B2 on
+    each group's device).  B2 is first held against its plain version at each
+    group's shape on the group's device; then the per-QP kernel's counts are
+    set to 0 and the placed system runs: its apply against the one-group
+    distributed system's, apply ms and the one group's beside it (host clock,
+    every card synchronized), busy ms per card, the halo exchange's ms
+    (import and export, the cross-group copies included) beside the one
+    group's, CG + Jacobi from zero within DIST_CG_SLACK of the one group's
+    iterations.  Fails unless B2 launched on every group's card.  Returns its
+    launches."""
+    import torch
+
+    from l3ster_tpu_torch.ops import qp
+
+    one, mesh = dist_state["system"], state["mesh"]
+    devices = _multi_devices(n_shards, device)
+    xg = torch.as_tensor(np.random.default_rng(61).normal(size=(one.n_dofs, 1)), dtype=one.dtype, device=device)
+    f1, c1 = one.operator_parts()
+    x1 = one._to_stacked(xg)
+    y1 = one._to_global(f1(x1, *c1))
+    one_ms = _wall_ms(lambda: f1(x1, *c1))
+    one_halo_ms = _wall_ms(lambda: one._export(one._import(x1.clone())))
+    _sync_all()
+    t0 = time.perf_counter()
+    placed = _build_cylinder(lp, mesh, "AUTO", torch.float32, device, n_shards=n_shards, devices=devices)
+    gops = placed._group_operators()
+    _sync_all()
+    setup_s = time.perf_counter() - t0
+    # B2 at each group's shape on its card, against the plain version (f64)
+    b2 = []
+    rng = np.random.default_rng(62)
+    for g, ops in zip(placed._groups, gops):
+        c, d, idx = next(o for o in ops if o[1][0] == "dense_const")
+        A, Ji, w = d[1], d[2], d[3]
+        E, Q = idx.shape[0], c.tables.n_qp
+        G = torch.as_tensor(rng.normal(size=(E, A.shape[2], A.shape[0], Q)), dtype=torch.float32, device=g.device)
+        got = qp.qp_algebra_const(A, G, Ji, w)
+        ref = qp.qp_algebra_const_plain(A, G.double(), Ji.double(), w.double())
+        err, rel = _errs(got, ref)
+        b2.append(dict(device=str(g.device), shards=[g.lo, g.hi], E=E, Q=Q, max_abs_err=err, rel_err=rel,
+                       ok=rel < F32_KERNEL_TOL))
+    qp.launch_count = 0  # the placed main path starts here
+    qp.launches_by_device.clear()
+    f, cs = placed.operator_parts()
+    x = placed._to_stacked(xg)
+    y = f(x, *cs)
+    err = _rel(placed._to_global(y), y1)
+    on_entries = all(p.device == g.device for p, g in zip(y.parts, placed._groups))
+    apply_ms = _wall_ms(lambda: f(x, *cs))
+    busy = _busy_by_device(lambda v: f(v, *cs), x)
+    halo_ms = _wall_ms(lambda: placed._export(placed._import(x.clone())))
+    cross = [(xc["imp"].cross_rows, xc["exp"].cross_rows, xc["SI"][0].shape[1]) for xc in placed._xchg]
+    cross_bytes = sum((a + b) * w * x.shape[-1] * x.dtype.itemsize for a, b, w in cross)
+    placed.set_solution_vector(torch.zeros_like(placed.x))
+    _sync_all()
+    t0 = time.perf_counter()
+    r = placed.solve(lp.CG(lp.IterSolverOpts(tol=CYL_CG_TOL, max_iters=CYL_CG_MAX_ITERS), precond=lp.Jacobi()))
+    _sync_all()
+    solve_s = time.perf_counter() - t0
+    launches, by_device = qp.launch_count, dict(qp.launches_by_device)
+    one_iters = dist_state["iterations"]
+    X = placed._solution_global()[:, 0].reshape(-1, 4)
+    ok = (
+        all(b["ok"] for b in b2) and err < F32_APPLY_TOL and on_entries and r.converged
+        and abs(r.num_iters - one_iters) <= DIST_CG_SLACK * one_iters and launches > 0
+        and _launched_everywhere(by_device, devices)
+    )
+    _say(
+        "multi_device_distributed", devices=devices, distinct_cards=len(set(devices)),
+        peer_access=_peer_access(devices), groups=[[g.lo, g.hi, str(g.device)] for g in placed._groups],
+        n_dofs=placed.n_dofs, n_shards=n_shards, kinds=[d[0] for _, d, _ in placed._operators()], setup_s=setup_s,
+        b2_vs_plain_per_group=b2, rel_err_vs_one_group_apply=err, tol=F32_APPLY_TOL, parts_on_entries=on_entries,
+        apply_ms=apply_ms, one_group_apply_ms=one_ms, busy_ms_by_device=busy, halo_exchange_ms=halo_ms,
+        one_group_halo_exchange_ms=one_halo_ms, cross_group_copy_ms=halo_ms - one_halo_ms,
+        cross_group_rows_per_offset=cross, cross_group_bytes_per_exchange=cross_bytes, iterations=r.num_iters,
+        one_group_iterations=one_iters, slack=DIST_CG_SLACK, converged=r.converged, solve_s=solve_s,
+        max_nodal_err_T_minus_x=float(np.abs(X[:, 0] - mesh.node_coords[:, 0]).max()),
+        qp_launches=launches, qp_launches_by_device=by_device, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the multi_device distributed phase failed its checks")
+    return launches
+
+
+def _peer_access(devices: list) -> dict:
+    """torch.cuda.can_device_access_peer between the distinct cards used."""
+    import torch
+
+    idx = sorted({torch.device(d).index or 0 for d in devices if torch.device(d).type == "cuda"})
+    return {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b) for a in idx for b in idx if a != b}
+
+
+def phase_multi_device_box(lp, state: dict, device: str = "cuda", n_slabs: int = 2) -> int:
+    """``multi_device``, the box part: the bench (f32) through
+    ``box_parallelize`` at ``n_slabs`` z slabs placed with ``devices=``
+    (:func:`_multi_devices`), B1 per shard on its group's card.  The one-group
+    box of the same slabs runs first (apply, CG + box LowOrderMG from zero);
+    then the z-sweep's counts are set to 0 and the placed box runs: its apply
+    against the one group's, apply ms beside it (host clock, every card
+    synchronized), busy ms per card, the plane exchanges' ms beside the one
+    group's, CG + box LowOrderMG from zero within BOX_MG_SLACK of the one
+    group's iterations, nodal T = x.  Fails unless B1 launched on every
+    group's card.  Returns its launches."""
+    import torch
+
+    from l3ster_tpu_torch.ops import zsweep
+
+    single, mesh = state["system"], state["mesh"]
+    devices = _multi_devices(n_slabs, device)
+    xg = torch.as_tensor(np.random.default_rng(63).normal(size=(single.n_dofs, 1)), dtype=single.dtype, device=device)
+    solver = lambda: lp.CG(lp.IterSolverOpts(tol=CG_TOL, max_iters=CG_MAX_ITERS), precond=lp.LowOrderMG())  # noqa: E731
+
+    def exchange(box, x_st):
+        nz, ny, nx = box._n1_loc[2], box._n1_loc[1], box._n1_loc[0]
+        x5 = [p.reshape(-1, nz, ny, nx * box._n_unk, 1).clone() for p in box._split(x_st)]
+        return lambda: box._export_halo(box._import_halo(x5))
+
+    one = lp.box_parallelize(single, n_shards=n_slabs)
+    x1 = one._to_slabs(xg)
+    y1 = one._from_slabs(one.operator()(x1))
+    one_ms = _wall_ms(lambda: one.operator()(x1))
+    one_halo_ms = _wall_ms(exchange(one, x1))
+    single.set_solution_vector(torch.zeros_like(single.x))
+    r1 = one.solve(solver())
+    del one
+    zsweep.launch_count = 0  # the placed box starts here
+    zsweep.launches_by_device.clear()
+    placed = lp.box_parallelize(single, n_shards=n_slabs, devices=devices)
+    fn = placed.operator()
+    x = placed._to_slabs(xg)
+    y = fn(x)
+    err = _rel(placed._from_slabs(y), y1)
+    parts = y.parts if len(placed._groups) > 1 else [y]
+    on_entries = all(p.device == g.device for p, g in zip(parts, placed._groups))
+    apply_ms = _wall_ms(lambda: fn(x))
+    busy = _busy_by_device(fn, x)
+    halo_ms = _wall_ms(exchange(placed, x))
+    single.set_solution_vector(torch.zeros_like(single.x))
+    _sync_all()
+    t0 = time.perf_counter()
+    r = placed.solve(solver())
+    _sync_all()
+    solve_s = time.perf_counter() - t0
+    launches, by_device = zsweep.launch_count, dict(zsweep.launches_by_device)
+    X = single.x[:, 0].reshape(-1, 4).double().cpu().numpy()
+    ok = (
+        err < F32_APPLY_TOL and on_entries and r.converged and r1.converged
+        and abs(r.num_iters - r1.num_iters) <= BOX_MG_SLACK and launches > 0
+        and _launched_everywhere(by_device, devices)
+    )
+    _say(
+        "multi_device_box", devices=devices, distinct_cards=len(set(devices)), peer_access=_peer_access(devices),
+        n_slabs=n_slabs, windows_z=placed._nez_real, rel_err_vs_one_group_apply=err, tol=F32_APPLY_TOL,
+        parts_on_entries=on_entries, apply_ms=apply_ms, one_group_apply_ms=one_ms, busy_ms_by_device=busy,
+        halo_exchange_ms=halo_ms, one_group_halo_exchange_ms=one_halo_ms, cross_group_copy_ms=halo_ms - one_halo_ms,
+        mg_iterations=r.num_iters, one_group_mg_iterations=r1.num_iters, slack=BOX_MG_SLACK,
+        converged=r.converged, solve_s=solve_s, true_rel_residual=_true_residual(single),
+        max_nodal_err_T_minus_x=float(np.abs(X[:, 0] - mesh.node_coords[:, 0]).max()),
+        zsweep_launches=launches, zsweep_launches_by_device=by_device, ok=ok,
+    )
+    if not ok:
+        raise SystemExit("chip_smoke: the multi_device box phase failed its checks")
+    return launches
 
 
 def phase_restart(lp, dist_state: dict, device: str = "cuda", n_shards: int = 2, out_dir: str = "results") -> None:
@@ -2949,7 +3195,7 @@ def phase_restart(lp, dist_state: dict, device: str = "cuda", n_shards: int = 2,
 
 def phase_distributed_assembled(lp, device: str = "cuda", order: int = PRE_ORDER, n_1d: int = PRE_N1D,
                                 n_shards: int = DIST_SHARDS) -> None:
-    """The preconditioners phase's problem (condensed at p = 4 on 4^3 hexes)
+    """The preconditioners phase's problem (condensed at p = 4 on 3^3 hexes)
     as a GLOBAL_ASSEMBLY DistributedSystem of ``n_shards`` shards: its
     gathered CSR against the single system's (f64, pattern exactly, values
     within 1e-12), then in f32 CG with Jacobi, SGS (additive Schwarz,
@@ -3110,8 +3356,8 @@ def phase_box(lp, state: dict, jacobi_iters: int, device: str = "cuda", cases=BO
         apply_ms = _cuda_ms(lambda: fn(x_st))
         busy_ms, top = _profile_apply(fn, x_st)
         nz, ny, nx = box._n1_loc[2], box._n1_loc[1], box._n1_loc[0]
-        x5 = x_st.reshape(n_shards, nz, ny, nx * box._n_unk, 1).clone()
-        y5 = x5.clone()
+        x5 = [p.reshape(-1, nz, ny, nx * box._n_unk, 1).clone() for p in box._split(x_st)]
+        y5 = [p.clone() for p in x5]
         import_ms = _cuda_ms(lambda: box._import_halo(x5))
         export_ms = _cuda_ms(lambda: box._export_halo(y5))
         runs = {}
@@ -3176,6 +3422,7 @@ def main() -> int:
     # the matrix-free bench solution (CG + LowOrderMG), for the condensed phase
     bench_nodal = state["system"].x[:, 0].reshape(-1, 4).double().cpu().numpy()
     record["launches"] += phase_box(lp, state, jacobi_iters)  # the bench through box_parallelize
+    record["launches"] += phase_multi_device_box(lp, state)  # and placed on several groups
     launches = phase_switches(lp, state)  # phase 6
     v1_record["launches"] = launches["zsweep_v1"]
     stage_record["launches"] = launches["stage_matmul"]
@@ -3202,6 +3449,7 @@ def main() -> int:
     sumfact_record["launches"] = sumfact_fused.launch_count
     dist_launches, dist_state = phase_distributed(lp, state, cylinder_iters)
     qp_records["cylinder"]["launches"] += dist_launches  # and the distributed cylinder
+    qp_records["cylinder"]["launches"] += phase_multi_device_distributed(lp, state, dist_state)  # placed
     del state
     torch.cuda.empty_cache()
     phase_restart(lp, dist_state)

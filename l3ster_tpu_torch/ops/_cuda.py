@@ -29,12 +29,15 @@ import torch
 
 __all__ = [
     "SMEM_LIMIT",
+    "CA_LIMITS",
     "build",
     "load",
     "build_logs",
     "coefficient_tables",
     "upload_coefficients",
     "device_and_stream",
+    "count_launch",
+    "device_index",
     "no_autograd",
 ]
 
@@ -42,6 +45,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+# (entries, equations, slots) of the __constant__ coefficient tables: CA_MAX_ENT,
+# CA_MAX_EQ and CA_MAX_SLOT of csrc/const_coeffs.cuh (a card test holds them equal)
+CA_LIMITS = (2048, 64, 256)
 
 build_logs: dict = {}  # name -> nvcc's -Xptxas=-v report of its last build in this process
 _libs: dict = {}
@@ -168,6 +174,17 @@ def no_autograd(name: str, *inputs) -> None:
             "backward (none is ported; ROADMAP.md). Differentiate with respect to the "
             "right-hand side, or run an operator kind that is plain torch."
         )
+
+
+def count_launch(by_device: dict, dev: int) -> None:
+    """Add one launch on device ``dev`` to a wrapper's per-device count."""
+    by_device[dev] = by_device.get(dev, 0) + 1
+
+
+def device_index(device=None) -> int:
+    """The CUDA device index of ``device`` (default, or no index: the current card)."""
+    index = None if device is None else torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
 
 
 def device_and_stream(x: torch.Tensor) -> tuple[int, int]:

@@ -17,7 +17,8 @@ of ``algsys/local.py``) on a CPU tensor, and launches the kernel on a CUDA
 tensor or raises.  The kernel walks tiles of QPs through a shared-memory
 ring on a persistent grid: :func:`launch_shape` sizes the ring,
 :func:`kernel_occupancy` adds the card's resident blocks and the grid.
-``launch_count`` counts kernel launches of both layouts.
+``launch_count`` counts kernel launches of both layouts, ``launches_by_device``
+the same launches by device index.
 """
 
 from __future__ import annotations
@@ -29,10 +30,13 @@ import numpy as np
 import torch
 
 from ._cuda import (
+    CA_LIMITS,
     SMEM_LIMIT,
+    count_launch,
     coefficient_tables,
     declare_coefficients,
     device_and_stream,
+    device_index,
     load,
     no_autograd,
     upload_coefficients,
@@ -48,6 +52,7 @@ __all__ = [
 ]
 
 launch_count = 0  # kernel launches; read and reset by callers that check the path
+launches_by_device: dict = {}  # the same launches by CUDA device index
 # per device: the coefficient set last uploaded to the kernel's __constant__ memory
 _uploaded: dict = {}
 
@@ -111,9 +116,9 @@ def _declare(lib) -> None:
     declare_coefficients(lib, "qp")
     for name in ("qp_f32", "qp_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 4 + [ci] * 8 + [ctypes.c_uint] + [ci] * 4 + [vp]
+        fn.argtypes = [vp] * 4 + [ci] * 9 + [ctypes.c_uint] + [ci] * 4 + [vp]
         fn.restype = ci
-    lib.qp_occupancy.argtypes = [ci] * 6
+    lib.qp_occupancy.argtypes = [ci] * 7
     for name in ("qp_threads", "qp_tile", "qp_occupancy", "qp_sm_count"):
         getattr(lib, name).restype = ci
     lib.qp_sm_count.argtypes = [ci]
@@ -124,8 +129,8 @@ def _library():
 
 
 def _tile_shape() -> tuple[int, int]:
-    """(threads a block, QPs a tile) of the kernel, compile-time constants of
-    ``csrc/qp_algebra.cu``."""
+    """(threads a block, QPs a tile) of the kernel's full tile, compile-time
+    constants of ``csrc/qp_algebra.cu``."""
     lib = _library()
     return lib.qp_threads(), lib.qp_tile()
 
@@ -139,39 +144,55 @@ def fast_div(d: int) -> tuple[int, int]:
     return -(-(1 << p) // d), p - 32
 
 
+SMALL_TILES = (128, 64, 32)  # the kernel's smaller tiles, one QP a thread
+
+
 def launch_shape(dim: int, c: int, n_eq: int, n_ent: int, itemsize: int, tile: int) -> dict:
     """The kernel's tile ring for A's ``n_ent`` nonzero entries: ``nbuf``
-    tiles of ``tile`` QPs (RING where they fit, else fewer) and ``smem``
-    bytes.  Raises where one tile does not fit."""
+    tiles of ``tile`` QPs (the full tile, RING of them where they fit, else
+    fewer; where one full tile does not fit, the largest of
+    :data:`SMALL_TILES` that does) and ``smem`` bytes.  Raises past the
+    ``__constant__`` tables' limits (``ops/_cuda.py:CA_LIMITS``), which every
+    A within them fits at the smallest tile."""
     S = (dim + 1) * c
+    max_ent, max_eq, max_slot = CA_LIMITS
+    if n_ent > max_ent or n_eq > max_eq or S > max_slot:
+        raise ValueError(
+            f"A has {n_ent} nonzeros, {n_eq} equations, {S} slots: over the kernel's constant tables "
+            f"({max_ent}, {max_eq}, {max_slot})"
+        )
     R = S + dim * dim + 1  # rows of a tile: G's slots, the J^-1 planes, w
-    for nbuf in range(RING, 0, -1):
-        smem = (nbuf * R + n_eq) * tile * itemsize + 8 * R + (2 * n_ent + S) * itemsize + (4 * n_ent + 2 * S) * 4
-        if smem <= SMEM_LIMIT:
-            return dict(tile=tile, rows=R, nbuf=nbuf, smem=smem)
+    for t in (tile,) + tuple(x for x in SMALL_TILES if x < tile):
+        for nbuf in range(RING, 0, -1):
+            smem = (nbuf * R + n_eq) * t * itemsize + 8 * R + (2 * n_ent + S) * itemsize + (4 * n_ent + 2 * S) * 4
+            if smem <= SMEM_LIMIT:
+                return dict(tile=t, rows=R, nbuf=nbuf, smem=smem)
     raise ValueError(f"qp_algebra_const needs {smem} bytes of shared memory for one tile; the limit is {SMEM_LIMIT}")
 
 
 @lru_cache(maxsize=64)
-def _resident(f64: bool, dim: int, c: int, lattice: bool, smem: int, dev: int) -> tuple[int, int]:
+def _resident(f64: bool, dim: int, c: int, lattice: bool, tile: int, smem: int, dev: int) -> tuple[int, int]:
     """(resident blocks per SM of the instantiation, SMs of the card)."""
     lib = _library()
-    blocks, sms = lib.qp_occupancy(int(f64), dim, c, int(lattice), smem, dev), lib.qp_sm_count(dev)
+    blocks, sms = lib.qp_occupancy(int(f64), dim, c, int(lattice), tile, smem, dev), lib.qp_sm_count(dev)
     if blocks <= 0 or sms <= 0:
         raise RuntimeError(f"qp_algebra occupancy query failed: {blocks}, {sms}")
     return blocks, sms
 
 
-def kernel_occupancy(dtype, A_const, dim: int, c: int, EQ: int, lattice: bool) -> dict:
-    """The launch shape on the current card: the tile ring, resident blocks per
-    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the persistent
+def kernel_occupancy(dtype, A_const, dim: int, c: int, EQ: int, lattice: bool, device=None) -> dict:
+    """The launch shape on ``device`` (default: the current card): the tile
+    ring, the block width, resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the persistent
     grid over ``EQ`` QPs."""
     A = np.ascontiguousarray(A_const, dtype=np.float64)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    threads, tile = _tile_shape()
-    sh = launch_shape(dim, c, A.shape[1], len(coefficient_tables(A)[3]), itemsize, tile)
-    blocks, sms = _resident(dtype == torch.float64, dim, c, lattice, sh["smem"], torch.cuda.current_device())
-    tiles = -(-EQ // tile)
+    full_threads, full_tile = _tile_shape()
+    sh = launch_shape(dim, c, A.shape[1], len(coefficient_tables(A)[3]), itemsize, full_tile)
+    threads = full_threads if sh["tile"] == full_tile else sh["tile"]
+    dev = device_index(device)
+    blocks, sms = _resident(dtype == torch.float64, dim, c, lattice, sh["tile"], sh["smem"], dev)
+    tiles = -(-EQ // sh["tile"])
     return dict(
         sh, threads=threads, blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32, tiles=tiles,
         grid=min(tiles, blocks * sms),
@@ -201,24 +222,25 @@ def _launch(A_const, G, Ji_t, w_t, c: int, d1: int, Q: int, lattice: bool):
     if max(G.numel(), Ji_t.numel()) >= 2**31:
         raise ValueError("qp_algebra_const: G or Ji_t has 2^31 or more values")
     n_eq, es = A.shape[1], G.element_size()
-    tile = _tile_shape()[1]
-    sh = launch_shape(dim, c, n_eq, len(coefficient_tables(A)[3]), es, tile)
+    sh = launch_shape(dim, c, n_eq, len(coefficient_tables(A)[3]), es, _tile_shape()[1])
+    tile = sh["tile"]
     G, Ji_t, w_t = G.contiguous(), Ji_t.contiguous(), w_t.contiguous()
     out = torch.empty_like(G)
     if EQ == 0:
         return out
     dev, stream = device_and_stream(G)
     upload_coefficients(lib, "qp", A, dev, stream, _uploaded)
-    blocks, sms = _resident(G.dtype == torch.float64, dim, c, lattice, sh["smem"], dev)
+    blocks, sms = _resident(G.dtype == torch.float64, dim, c, lattice, tile, sh["smem"], dev)
     # 16-byte copies where every row starts 16-byte aligned and no vector straddles an element
     vec = Q % (16 // es) == 0 and all(t.data_ptr() % 16 == 0 for t in (G, Ji_t, w_t, out))
     qmul, qshr = fast_div(Q)
     fn = lib.qp_f32 if G.dtype == torch.float32 else lib.qp_f64
     rc = fn(
         G.data_ptr(), Ji_t.data_ptr(), w_t.data_ptr(), out.data_ptr(), EQ, Q, c, dim, n_eq, int(lattice),
-        int(vec), sh["nbuf"], qmul, qshr, min(-(-EQ // tile), blocks * sms), sh["smem"], dev, stream,
+        int(vec), sh["nbuf"], tile, qmul, qshr, min(-(-EQ // tile), blocks * sms), sh["smem"], dev, stream,
     )
     if rc != 0:
         raise RuntimeError(f"qp_algebra kernel launch failed: CUDA error {rc}")
     launch_count += 1
+    count_launch(launches_by_device, dev)
     return out

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ._cuda import SMEM_LIMIT, device_and_stream, load, no_autograd
+from ._cuda import SMEM_LIMIT, device_and_stream, device_index, load, no_autograd
 
 __all__ = [
     "StageBand",
@@ -322,11 +322,11 @@ def _launch(x, x2, T, N, band: StageBand):
     return out
 
 
-def kernel_occupancy(dtype, M: int, K1: int, K2: int, band: StageBand) -> dict:
-    """The launch shape of a stage on the current card, with the kernel
-    instantiation's resident blocks per SM
+def kernel_occupancy(dtype, M: int, K1: int, K2: int, band: StageBand, device=None) -> dict:
+    """The launch shape of a stage on ``device`` (default: the current card),
+    with the kernel instantiation's resident blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    dev = torch.cuda.current_device()
+    dev = device_index(device)
     itemsize = torch.empty((), dtype=dtype).element_size()
     sh = launch_shape(M, band.desc.shape[0], K1, K2, band.span, itemsize, _sm_count(dev))
     blocks = _library().stage_band_occupancy(

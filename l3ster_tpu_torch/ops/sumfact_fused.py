@@ -26,6 +26,7 @@ from ._cuda import (
     coefficient_tables,
     declare_coefficients,
     device_and_stream,
+    device_index,
     load,
     no_autograd,
     upload_coefficients,
@@ -194,15 +195,16 @@ def _launch(A_const, ji, w, order, q_order, dim, x_loc):
     return y
 
 
-def kernel_occupancy(dtype, A_const, order: int, q_order: int, dim: int) -> dict:
-    """The launch shape on the current card, with the instantiation's resident
-    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def kernel_occupancy(dtype, A_const, order: int, q_order: int, dim: int, device=None) -> dict:
+    """The launch shape on ``device`` (default: the current card), with the
+    instantiation's resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     A = np.ascontiguousarray(A_const, dtype=np.float64)
     itemsize = torch.empty((), dtype=dtype).element_size()
     sh = launch_shape(order, q_order, dim, A.shape[2], A.shape[1], len(coefficient_tables(A)[3]), itemsize)
     blocks = _library().sf_occupancy(
         int(dtype == torch.float64), int(sh["generic"]), dim, order + 1, q_order // 2 + 1, sh["threads"],
-        sh["smem"], torch.cuda.current_device(),
+        sh["smem"], device_index(device),
     )
     if blocks < 0:
         raise RuntimeError(f"sumfact_fused occupancy query failed: CUDA error {-blocks}")

@@ -16,7 +16,8 @@ kernel with the same CUDA kernel.
 :func:`fused_z_sweep_plain` (torch.einsum); on a CUDA tensor it launches the
 kernel or raises.  The kernel is built with ``nvcc`` from the package's
 sources at first use into ``l3ster_tpu_torch/_build/`` and bound with
-``ctypes`` (``ops/_cuda.py``).  ``launch_count`` counts kernel launches.
+``ctypes`` (``ops/_cuda.py``).  ``launch_count`` counts kernel launches,
+``launches_by_device`` the same launches by device index.
 """
 
 from __future__ import annotations
@@ -29,7 +30,16 @@ import numpy as np
 import torch
 
 from ._cuda import SMEM_LIMIT as _SMEM_LIMIT
-from ._cuda import coefficient_tables, declare_coefficients, device_and_stream, load, no_autograd, upload_coefficients
+from ._cuda import (
+    coefficient_tables,
+    count_launch,
+    declare_coefficients,
+    device_and_stream,
+    device_index,
+    load,
+    no_autograd,
+    upload_coefficients,
+)
 
 __all__ = [
     "detect_diag_geometry",
@@ -43,6 +53,7 @@ __all__ = [
 ]
 
 launch_count = 0  # kernel launches; read and reset by callers that check the path
+launches_by_device: dict = {}  # the same launches by CUDA device index
 # per device: the coefficient set last uploaded to the kernel's __constant__
 # memory.  Uploads are ordered on the launching stream, so launches on one
 # stream at a time per device see their own coefficients.
@@ -238,6 +249,7 @@ def fused_z_sweep(A_const, b, bdy, bdx, geom: tuple, tabs: ZSweepTables, var=Non
         return fused_z_sweep_plain(A_const, b, bdy, bdx, geom, tabs.NzT, tabs.DzT, var, layout)
     out = launch(A_const, b, bdy, bdx, geom, tabs, var, layout)
     launch_count += 1
+    count_launch(launches_by_device, b.device.index)
     return out
 
 
@@ -386,12 +398,12 @@ def launch(A_const, b, bdy, bdx, geom, tabs: ZSweepTables, var=None, layout: str
     return a, ady, adx
 
 
-def kernel_occupancy(dtype, diag: bool, A, K: int, tabs: ZSweepTables, RQ: int) -> dict:
-    """The launch shape of these inputs on the current card (A the constant
+def kernel_occupancy(dtype, diag: bool, A, K: int, tabs: ZSweepTables, RQ: int, device=None) -> dict:
+    """The launch shape of these inputs on ``device`` (default: the current card; A the constant
     matrix, or ``plane_table`` of a variable one with its K planes), with the
     kernel instantiation's resident blocks per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    dev = torch.cuda.current_device()
+    dev = device_index(device)
     A = np.ascontiguousarray(A, dtype=np.float64)
     itemsize = torch.empty((), dtype=dtype).element_size()
     n_ent = len(coefficient_tables(A)[3])

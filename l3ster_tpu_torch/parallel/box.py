@@ -11,11 +11,17 @@ touches.  The halo exchange moves whole planes: imports run z then y, so the
 y transfer carries the z-ghost corner just filled, and exports run y then z,
 so corner partials accumulate through the same order.
 
-All shards live on the wrapped system's device, stacked on a leading axis:
-the reference's neighbour ``ppermute`` of a plane is a gather of that plane
-from the neighbour's slice of the stacked tensor.  Uneven windows pad the
-trailing shards with zero-weighted planes (unit Jacobians, so the geometry
-stays finite); an empty window is fine.
+``devices`` places the shards as the reference's mesh over
+``devices[:n_shards]`` does (:mod:`.sharded`): one placement group per
+entry, each a contiguous block of shards stacked on a leading axis on its
+device, the first entry the wrapped system's device (``devices=None``: one
+group there).  Each shard's window data live on its group's device, and its
+apply launches there.  The reference's neighbour ``ppermute`` of a plane is a
+gather of that plane from the neighbour's slice of the stacked tensor within
+a group, and a copy of the plane between groups
+(:class:`~.sharded.RowExchange`).  Uneven windows pad the trailing shards
+with zero-weighted planes (unit Jacobians, so the geometry stays finite); an
+empty window is fine.
 
 ``box_parallelize(system, n_shards, grid=(Pz, Py))`` wraps an assembled
 :class:`~l3ster_tpu_torch.algsys.system.MatrixFreeSystem`: the assembly data
@@ -32,22 +38,24 @@ import numpy as np
 import torch
 
 from ..algsys.system import _last_solve_suffix
+from .sharded import PlacedShards, RowExchange, _full_device, describe_placement, shard_groups
 
 __all__ = ["BoxSystem", "box_parallelize"]
 
 
-class BoxSystem:
+class BoxSystem(PlacedShards):
     """Window-decomposed operator around a single MatrixFreeSystem (see the
     module doc); ``grid=(Pz, Py)`` (default ``(n_shards, 1)``: z slabs)."""
 
     def __init__(self, system, n_shards: int | None = None, devices=None, grid=None):
-        if devices is not None and {str(torch.device(d)) for d in devices} != {str(system.device)}:
-            raise NotImplementedError(
-                "the shards of a BoxSystem live on the wrapped system's device; placing them on "
-                "several waits for the multi-device placement (ROADMAP.md)"
+        if devices is not None and _full_device(devices[0]) != _full_device(system.device):
+            raise ValueError(
+                f"the first entry of devices ({devices[0]}) must be the wrapped system's device "
+                f"({system.device}), which holds the coarse levels and the assembly data"
             )
         self.inner = system
-        self.n_shards = int(n_shards or 1)
+        self.n_shards = int(n_shards or (len(devices) if devices is not None else 1))
+        self._groups = shard_groups(self.n_shards, devices, system.device)
         self.grid = (self.n_shards, 1) if grid is None else (int(grid[0]), int(grid[1]))
         if self.grid[0] * self.grid[1] != self.n_shards:
             raise ValueError(f"grid {self.grid} does not cover {self.n_shards} shards")
@@ -109,7 +117,9 @@ class BoxSystem:
                 out[p][..., :zr, :yr, :] = a[..., pz * Sz_loc : pz * Sz_loc + zr, py * Sy_loc : py * Sy_loc + yr, :]
             return out.reshape((P,) + lead + (Sz_loc * Sy_loc * Sx,))
 
-        t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=self.device)  # noqa: E731
+        # per-shard data: a list over the shards, each on its group's device
+        dev_of = [g.device for g in self._groups for _ in range(g.n)]
+        t = lambda a: [torch.as_tensor(a[p], dtype=self.dtype, device=dev_of[p]) for p in range(P)]  # noqa: E731
         self._vol = []
         for _, d in vols:
             if d[0] == "lattice_sf_const":
@@ -188,7 +198,7 @@ class BoxSystem:
             packs = [pack_face_banded(A_st[p], w_st[p], fp_loc, c.tables.order, qof) for p in range(P)]
             if all(pk is not None for pk in packs):
                 # value-only side: one banded 2D sweep over each shard's face plane
-                entry.update(A_l=[t(pk[0]) for pk in packs], w_l=[t(pk[1]) for pk in packs], qof=qof)
+                entry.update(A_l=t([pk[0] for pk in packs]), w_l=t([pk[1] for pk in packs]), qof=qof)
             else:
                 entry.update(A=t(A_st), B=t(B_st), w=t(w_st))
             self._faces.append(entry)
@@ -207,37 +217,43 @@ class BoxSystem:
             y = self._y0[py] + np.arange(ylo, nyr)
             src[p, zlo:nzr, ylo:nyr] = (z[:, None, None] * n1[1] + y[None, :, None]) * n1[0] + np.arange(nx)
         self._src = torch.as_tensor(src.reshape(P, -1), device=self.device)
-        self._own_st = (self._src >= 0).to(self.dtype).repeat_interleave(self._n_unk, dim=1)
+        self._own_st = self._place((self._src >= 0).to(self.dtype).repeat_interleave(self._n_unk, dim=1))
         free = sysm.free_mask[:, None]
         self._free_st = self._to_slabs(free)[..., 0]
         self._dir_st = self._to_slabs(1.0 - free)[..., 0]
         # neighbour shards: the z neighbours differ by Py in the flat shard
-        # index, the y neighbours by 1 within a row
+        # index, the y neighbours by 1 within a row; each plane move carries
+        # the rows of shards that have the neighbour
         ps = np.arange(P)
         pz_of, py_of = ps // Py, ps % Py
         row = ps - py_of
-        dev = self.device
-        self._z_prev = torch.as_tensor((ps - Py) % P, device=dev)
-        self._z_next = torch.as_tensor((ps + Py) % P, device=dev)
-        self._y_prev = torch.as_tensor(row + (py_of - 1) % Py, device=dev)
-        self._y_next = torch.as_tensor(row + (py_of + 1) % Py, device=dev)
-        m = lambda a: torch.as_tensor(a, device=dev)[:, None, None, None]  # noqa: E731
-        self._z_has_prev, self._z_has_next = m(pz_of > 0), m(pz_of < Pz - 1)
-        self._y_has_prev, self._y_has_next = m(py_of > 0), m(py_of < Py - 1)
+        has = dict(z_prev=pz_of > 0, z_next=pz_of < Pz - 1, y_prev=py_of > 0, y_next=py_of < Py - 1)
+        src_of = dict(z_prev=(ps - Py) % P, z_next=(ps + Py) % P, y_prev=row + (py_of - 1) % Py,
+                      y_next=row + (py_of + 1) % Py)
+        # the import takes from the predecessors, the export from the successors
+        self._move = {k: RowExchange(self._groups, src_of[k], has[k]) for k in ("z_prev", "y_prev")}
+        self._move.update({k: RowExchange(self._groups, src_of[k], has[k]) for k in ("z_next", "y_next")})
+        self._has = {
+            k: [torch.as_tensor(v[g.lo : g.hi], device=g.device)[:, None, None, None] for g in self._groups]
+            for k, v in has.items()
+        }
+
 
     # -- layouts -----------------------------------------------------------------
 
-    def _to_slabs(self, xg: torch.Tensor) -> torch.Tensor:
-        """(n_dofs, r) global -> (P, L, r) stacked windows, zero on ghost and
-        padding planes."""
+    def _to_slabs(self, xg: torch.Tensor):
+        """(n_dofs, r) global -> (P, L, r) stacked windows in this system's
+        placement, zero on ghost and padding planes."""
         c, r = self._n_unk, xg.shape[-1]
         rows = xg.reshape(-1, c, r)
-        src = self._src
+        src = self._src.to(xg.device)
         out = rows[src.clamp(min=0)] * (src >= 0)[..., None, None].to(xg.dtype)
-        return out.reshape(self.n_shards, -1, r)
+        return self._place(out.reshape(self.n_shards, -1, r))
 
-    def _from_slabs(self, x_st: torch.Tensor) -> torch.Tensor:
-        """(P, L, r) stacked -> (n_dofs, r) global, from the owned planes."""
+    def _from_slabs(self, x_st) -> torch.Tensor:
+        """(P, L, r) stacked -> (n_dofs, r) global on the wrapped system's
+        device, from the owned planes."""
+        x_st = self._full(x_st).to(self.device)
         c, r = self._n_unk, x_st.shape[-1]
         out = x_st.new_zeros((self.inner.n_dofs // c, c, r))
         m = self._src >= 0
@@ -246,31 +262,35 @@ class BoxSystem:
 
     # -- the window-decomposed operator -------------------------------------------
 
-    def _import_halo(self, x5: torch.Tensor) -> torch.Tensor:
-        """Owner -> ghost planes, in place on x5 (P, nz, ny, nx*c, r): the z
-        ghost plane from the z predecessor's last real plane, then the y
-        ghost row (which carries the corner just filled) from the y
+    def _import_halo(self, x5: list) -> list:
+        """Owner -> ghost planes, in place on the groups' x5 (n, nz, ny,
+        nx*c, r): the z ghost plane from the z predecessor's last real plane,
+        then the y ghost row (which carries the corner just filled) from the y
         predecessor's last row."""
         Pz, Py = self.grid
         if Pz > 1:
-            x5[:, 0] = torch.where(self._z_has_prev, x5[self._z_prev, -1], x5[:, 0])
+            got = self._move["z_prev"]([x[:, -1] for x in x5])
+            for x, h, g in zip(x5, self._has["z_prev"], got):
+                x[:, 0] = torch.where(h, g, x[:, 0])
         if Py > 1:
-            x5[:, :, 0] = torch.where(self._y_has_prev, x5[self._y_prev, :, -1], x5[:, :, 0])
+            got = self._move["y_prev"]([x[:, :, -1] for x in x5])
+            for x, h, g in zip(x5, self._has["y_prev"], got):
+                x[:, :, 0] = torch.where(h, g, x[:, :, 0])
         return x5
 
-    def _export_halo(self, y5: torch.Tensor) -> torch.Tensor:
-        """Ghost -> owner accumulation, in place on y5: y first (the corner
-        partials ride into the y neighbour's z ghost), then z; ghost planes
-        end at zero."""
+    def _export_halo(self, y5: list) -> list:
+        """Ghost -> owner accumulation, in place on the groups' y5: y first
+        (the corner partials ride into the y neighbour's z ghost), then z;
+        ghost planes end at zero."""
         Pz, Py = self.grid
-        if Py > 1:
-            send = torch.where(self._y_has_prev, y5[:, :, 0], torch.zeros_like(y5[:, :, 0]))
-            y5[:, :, -1] += torch.where(self._y_has_next, send[self._y_next], torch.zeros_like(send))
-            y5[:, :, 0] = torch.where(self._y_has_prev, torch.zeros_like(send), y5[:, :, 0])
-        if Pz > 1:
-            send = torch.where(self._z_has_prev, y5[:, 0], torch.zeros_like(y5[:, 0]))
-            y5[:, -1] += torch.where(self._z_has_next, send[self._z_next], torch.zeros_like(send))
-            y5[:, 0] = torch.where(self._z_has_prev, torch.zeros_like(send), y5[:, 0])
+        for ax, prev, nxt in ((Py > 1 and 2, "y_prev", "y_next"), (Pz > 1 and 1, "z_prev", "z_next")):
+            if not ax:
+                continue
+            sel = (slice(None),) * ax
+            sends = [torch.where(h, y[sel + (0,)], torch.zeros_like(y[sel + (0,)])) for y, h in zip(y5, self._has[prev])]
+            for y, hp, hn, send, got in zip(y5, self._has[prev], self._has[nxt], sends, self._move[nxt](sends)):
+                y[sel + (-1,)] += torch.where(hn, got, torch.zeros_like(got))
+                y[sel + (0,)] = torch.where(hp, torch.zeros_like(send), y[sel + (0,)])
         return y5
 
     def _shard_apply(self, p: int, t: torch.Tensor) -> torch.Tensor:
@@ -304,19 +324,21 @@ class BoxSystem:
                 face_scatter_tensor_add(yf, fp, f["order"], yt)
         return yt
 
-    def _apply(self, x: torch.Tensor) -> torch.Tensor:
-        """The constrained operator on stacked windows (P, L, r)."""
-        P, r = self.n_shards, x.shape[-1]
+    def _apply(self, x):
+        """The constrained operator on stacked windows (P, L, r): per group,
+        one apply per shard on the group's device."""
+        r = x.shape[-1]
         nz, ny, nx = self._n1_loc[2], self._n1_loc[1], self._n1_loc[0]
         c = self._n_unk
         free = self._free_st[:, :, None]
-        x5 = self._import_halo((x * free).reshape(P, nz, ny, nx * c, r))
-        y5 = torch.empty_like(x5)
-        for p in range(P):
-            for rr in range(r):
-                t = x5[p, :, :, :, rr].reshape(-1, c).T.reshape(c, nz, ny, nx)
-                y5[p, :, :, :, rr] = self._shard_apply(p, t).reshape(c, -1).T.reshape(nz, ny, nx * c)
-        y = self._export_halo(y5).reshape(P, -1, r)
+        x5 = self._import_halo([xp.reshape(-1, nz, ny, nx * c, r) for xp in self._split(x * free)])
+        y5 = [torch.empty_like(xp) for xp in x5]
+        for g, xp, yp in zip(self._groups, x5, y5):
+            for p in range(g.lo, g.hi):
+                for rr in range(r):
+                    t = xp[p - g.lo, :, :, :, rr].reshape(-1, c).T.reshape(c, nz, ny, nx)
+                    yp[p - g.lo, :, :, :, rr] = self._shard_apply(p, t).reshape(c, -1).T.reshape(nz, ny, nx * c)
+        y = self._join([yp.reshape(yp.shape[0], -1, r) for yp in self._export_halo(y5)])
         return y * free + x * self._dir_st[:, :, None]
 
     def operator_parts(self, layout: str = "dof"):
@@ -361,13 +383,15 @@ class BoxSystem:
         return self.inner._assembly_epoch
 
     def describe(self, per_shard: bool = False) -> str:
-        """One-line summary; ``per_shard=True`` appends the per-shard window
-        table (real elements and window dofs) with its min/max/total footer."""
+        """One-line summary, with the shards' devices; ``per_shard=True``
+        appends the per-shard window table (real elements and window dofs)
+        with its min/max/total footer."""
         Pz, Py = self.grid
         head = (
             f"BoxSystem: {self.inner.n_dofs} dofs as a {Pz}x{Py} pencil grid of "
             f"{self._ne_loc[2]}x{self._ne_loc[1]} element windows (lattice apply per shard, "
-            f"{len(self._faces)} boundary faces, {2 * ((Pz > 1) + (Py > 1))} plane exchanges per apply)"
+            f"{len(self._faces)} boundary faces, {2 * ((Pz > 1) + (Py > 1))} plane exchanges per apply), "
+            f"{describe_placement(self._groups)}"
         ) + _last_solve_suffix(self)
         if not per_shard:
             return head

@@ -7,18 +7,26 @@ laid out as ``[owned | ghost | dump]`` (padded to a common size ``n_loc1``),
 and the solver-facing vectors are one stacked tensor ``(n_shards, n_loc1,
 n_rhs)``, exactly the reference's global view of its sharded arrays.
 
-All shards live on the system's one device.  The reference's per-shard
-``shard_map`` bodies become a batch over the leading axis: the element
-contributions of every shard run as one local apply over all elements,
-gathering from and scattering into the flattened stacked vector.  The halo
-exchange keeps the reference's pattern: owner-to-holder lists grouped by
-ring offset ``o = (holder - owner) mod n_shards``, each offset one send
-buffer per shard; the reference's ``ppermute`` over the mesh axis is a
-``torch.roll`` of those buffers over the shard axis, followed by the
-scatter into the receivers' ghost slots (import) or the accumulation into
-the owners' slots (export).  The reference's ``psum`` is a sum over the
-shard axis, which the Krylov dots (``solve/krylov.py:_col_dots``) already
-take.
+``devices`` places the shards as the reference's mesh over
+``devices[:n_shards]`` does (:mod:`.sharded`): one placement group per
+entry, each a contiguous block of shards stacked on its device (a repeated
+entry is still its own group; ``devices=None``: one group on the system's
+device).  Within a group the reference's per-shard ``shard_map`` bodies
+become a batch over the leading axis: the element contributions of the
+group's shards run as one local apply over their elements, gathering from
+and scattering into the group's flattened stack.  The halo exchange keeps
+the reference's pattern: owner-to-holder lists grouped by ring offset
+``o = (holder - owner) mod n_shards``, each offset one send buffer per
+shard; the reference's ``ppermute`` over the mesh axis moves those buffers
+over the shard axis (a gather within a group, copies between groups,
+:class:`~.sharded.RowExchange`), followed by the scatter into the
+receivers' ghost slots (import) or the accumulation into the owners' slots
+(export).  The reference's ``psum`` is a sum over the shard axis, which the
+Krylov dots (``solve/krylov.py:_col_dots``) already take; on several
+groups the solver vectors are :class:`~.sharded.ShardedStack` s, whose sums
+add the groups' partial sums on the first group's device.  Assembly (the
+local rhs, diagonal and matrices) runs on that first device over every
+shard, and its results are cut into the groups.
 
 Solver-facing vectors keep ghosts and the dump slot at exactly zero (every
 export is followed by the owned mask), so the plain dots are correct.
@@ -26,9 +34,10 @@ export is followed by the owned mask), so the plain dots are correct.
 ``GLOBAL_ASSEMBLY`` keeps one CSR partial matrix per shard over its local
 slots (each shard's own element contributions, ghost rows included; the
 Tpetra FECrsMatrix semantics): here the shards' matrices form one
-block-diagonal CSR over the stacked slots, and the apply is import, one
-SpMV, export.  ``ELEMENT_BOUNDARY`` condensation works on it, with each
-element's Schur complement formed where the element lives.
+block-diagonal CSR over the stacked slots of each group, and the apply is
+import, one SpMV per group, export.  ``ELEMENT_BOUNDARY`` condensation
+works on it, with each element's Schur complement formed where the element
+lives.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from ..common.problem import AlgebraicSystemParams
 from ..mesh.traits import boundary_node_indices, internal_node_indices
 from ..utils.profiling import profile_region
 from .partition import partition_mesh_elements
+from .sharded import PlacedShards, RowExchange, describe_placement, resolve_home_device, shard_groups
 
 __all__ = ["DistributedSystem", "make_distributed_system"]
 
@@ -68,27 +78,27 @@ __all__ = ["DistributedSystem", "make_distributed_system"]
 class _ShardBucket:
     """One contribution with its elements' dofs in the stacked slot space:
     ``sidx`` (E, n_nodes * n_unk) holds ``shard * n_loc1 + slot`` of each
-    element dof (condensed-out dofs on the dump slot)."""
+    element dof (condensed-out dofs on the dump slot); ``part`` (E,) each
+    element's shard."""
 
     c: _Contribution
     sidx: np.ndarray
+    part: np.ndarray
 
 
-def _resolve_shard_device(device, devices) -> str | torch.device | None:
-    """The one device every shard lives on: ``devices`` (the reference's
-    argument) may name only one."""
-    if devices is None:
-        return device
-    names = {str(torch.device(d)) for d in devices}
-    if len(names) != 1 or (device is not None and str(torch.device(device)) not in names):
-        raise NotImplementedError(
-            "the shards of a DistributedSystem live on one device; placing them on several "
-            "waits for the multi-device placement (ROADMAP.md)"
-        )
-    return next(iter(names))
+def _split_op(d: tuple, esel: torch.Tensor, n_qp: int, device) -> tuple:
+    """A bucket's op data restricted to the elements ``esel`` and moved to
+    ``device``: ``direct`` data leads with the element axis, the dense and
+    sum-factorized kinds carry element-major QPs (E * Q) on their last axis."""
+    if d[0] == "direct":
+        return ("direct",) + tuple(a[esel.to(a.device)].to(device) for a in d[1:])
+    q = (esel[:, None] * n_qp + torch.arange(n_qp, device=esel.device)).reshape(-1)
+    pick = lambda a: a[..., q.to(a.device)].contiguous().to(device)  # noqa: E731
+    A = pick(d[1]) if d[0] in ("dense", "sumfact") else d[1]
+    return (d[0], A, pick(d[2]), pick(d[3])) + tuple(a.to(device) for a in d[4:])
 
 
-class DistributedSystem(_SystemBase):
+class DistributedSystem(PlacedShards, _SystemBase):
     """Element-sharded system in the stacked ``(n_shards, n_loc1, n_rhs)``
     layout (see the module doc); matrix-free or, under GLOBAL_ASSEMBLY,
     per-shard CSR partial matrices."""
@@ -107,8 +117,9 @@ class DistributedSystem(_SystemBase):
         partition_grid: tuple[int, int] | None = None,
         device=None,
     ):
-        super().__init__(mesh, problem, bc_def, params, dtype, _resolve_shard_device(device, devices))
-        self.n_shards = int(n_shards or 1)
+        super().__init__(mesh, problem, bc_def, params, dtype, resolve_home_device(device, devices))
+        self.n_shards = int(n_shards or (len(devices) if devices is not None else 1))
+        self._groups = shard_groups(self.n_shards, devices, self.device)
         if partition_grid is not None and partition_method == "rcb":
             partition_method = "rcb2d"
         self.partition_grid = partition_grid
@@ -121,12 +132,26 @@ class DistributedSystem(_SystemBase):
         self._sbuckets: list[_ShardBucket] = []
         self._diag = None
         self._ops = None
+        self._gops = None
         self._asm = None
         self._csr = None
         self._gathered = None
         self._cond_aggs: dict[int, _CondensationAgg] = {}
-        self.rhs = self._zeros((self.n_shards, self.n_loc1, self.n_rhs))
-        self.x = self._zeros((self.n_shards, self.n_loc1, self.n_rhs))
+        self.rhs = self._stacked_zeros()
+        self.x = self._stacked_zeros()
+
+    # -- placement (see .sharded) ----------------------------------------------
+
+    def _stacked_zeros(self):
+        return self._join([
+            torch.zeros((g.n, self.n_loc1, self.n_rhs), dtype=self.dtype, device=g.device) for g in self._groups
+        ])
+
+    def _group_map(self, fn, *vecs):
+        """``fn(group index, *the group's parts of vecs)`` per group, joined:
+        the per-group step of a preconditioner (a local solve, a block apply)."""
+        parts = [self._split(v) for v in vecs]
+        return self._join([fn(gi, *(p[gi] for p in parts)) for gi in range(len(self._groups))])
 
     # -- ownership and the halo pattern (SegmentedOwnership analog) ----------
 
@@ -167,9 +192,9 @@ class DistributedSystem(_SystemBase):
             owned_mask[p, :n_own] = 1.0
             free_local[p, : len(fl)] = fl
             dir_local[p, :n_own] = 1.0 - fl[:n_own]
-        self._owned_mask = self._tensor(owned_mask)
-        self._free_local = self._tensor(free_local)
-        self._dir_local = self._tensor(dir_local)
+        self._owned_mask = self._place(self._tensor(owned_mask))
+        self._free_local = self._place(self._tensor(free_local))
+        self._dir_local = self._place(self._tensor(dir_local))
 
         # (owner j, holder q) exchange lists grouped by ring offset (q - j) mod P,
         # one send buffer per shard and offset (``comm/DistributeMesh.hpp:207-227``)
@@ -197,9 +222,25 @@ class DistributedSystem(_SystemBase):
             comm.append((o, self._tensor(SI, torch.int64), self._tensor(RI, torch.int64), self._tensor(SM)))
         self._comm = comm
         self._n_neighbors = len(comm)
-        self._shard_rows = torch.arange(P, device=self.device)[:, None]
-        # each offset's owner slots in the flat (P * n_loc1) view, for the export
-        self._send_flat = [(self._shard_rows * self.n_loc1 + SI).reshape(-1) for _, SI, _, _ in comm]
+        # per offset and group: the owner-side slots (also flat in the group's
+        # (n * n_loc1) view, for the export), the holder-side slots, the send
+        # mask, and the moves of the buffers over the shard axis (import: the
+        # holder q takes the owner q - o's buffer; export: the owner j takes
+        # the holder j + o's), only rows that carry something crossing groups
+        ps = np.arange(P)
+        self._shard_rows = [torch.arange(g.n, device=g.device)[:, None] for g in self._groups]
+        self._xchg = []
+        for o, SI, RI, SM in comm:
+            recv_any = (RI != self._dump).any(dim=1).cpu().numpy()
+            send_any = (SM > 0).any(dim=1).cpu().numpy()
+            cut = lambda a, g: a[g.lo : g.hi].to(g.device)  # noqa: E731
+            self._xchg.append(dict(
+                SI=[cut(SI, g) for g in self._groups], RI=[cut(RI, g) for g in self._groups],
+                SM=[cut(SM, g)[:, :, None] for g in self._groups],
+                SI_flat=[(rows * self.n_loc1 + cut(SI, g)).reshape(-1) for rows, g in zip(self._shard_rows, self._groups)],
+                imp=RowExchange(self._groups, (ps - o) % P, recv_any),
+                exp=RowExchange(self._groups, (ps + o) % P, send_any),
+            ))
 
         # the owner-side (shard, slot) of each Dirichlet dof
         ds = owner[self.dirichlet_dofs]
@@ -234,6 +275,10 @@ class DistributedSystem(_SystemBase):
         out[neg] = self._dump
         return out
 
+    def _shard_group(self) -> np.ndarray:
+        """(n_shards,) the group of each shard."""
+        return np.concatenate([np.full(g.n, gi) for gi, g in enumerate(self._groups)])
+
     def _stacked(self, part: np.ndarray, gd: np.ndarray) -> np.ndarray:
         """Global dofs (E, k) of elements on shards ``part`` (E,) -> stacked
         slots ``shard * n_loc1 + slot``."""
@@ -245,26 +290,35 @@ class DistributedSystem(_SystemBase):
 
     # -- halo exchange ----------------------------------------------------------
 
-    def _import(self, x: torch.Tensor) -> torch.Tensor:
+    def _import_parts(self, xs: list) -> list:
         """Owner -> ghost propagation (``Import`` analog), in place on the
-        stacked x (P, L, r), which is returned: per ring offset o, shard j's
-        owned halo rows land in the ghost slots of shard j + o."""
-        rows = self._shard_rows
-        for o, SI, RI, _ in self._comm:
-            x[rows, RI] = torch.roll(x[rows, SI], o, 0)
-        return x
+        groups' stacked parts (n, L, r), which are returned: per ring offset
+        o, shard j's owned halo rows land in the ghost slots of shard j + o."""
+        for xc in self._xchg:
+            sends = [x[rows, SI] for x, rows, SI in zip(xs, self._shard_rows, xc["SI"])]
+            for x, rows, RI, buf in zip(xs, self._shard_rows, xc["RI"], xc["imp"](sends)):
+                x[rows, RI] = buf
+        return xs
 
-    def _export(self, y: torch.Tensor) -> torch.Tensor:
+    def _export_parts(self, ys: list) -> list:
         """Ghost -> owner accumulation (``Export`` + ``AtomicSumInto`` analog),
-        in place on the stacked y, which is returned: per ring offset, the
-        holders' ghost rows, rolled back to their owners, ``index_add_``-ed
-        into the owners' slots of the flat (P * n_loc1, r) view."""
-        rows = self._shard_rows
-        flat = y.view(-1, y.shape[-1])
-        for (o, SI, RI, SM), SI_flat in zip(self._comm, self._send_flat):
-            buf = torch.roll(y[rows, RI], -o, 0) * SM[:, :, None]
-            flat.index_add_(0, SI_flat, buf.reshape(-1, y.shape[-1]))
-        return y
+        in place on the groups' stacked parts, which are returned: per ring
+        offset, the holders' ghost rows, moved back to their owners,
+        ``index_add_``-ed into the owners' slots of each group's flat
+        (n * L, r) view."""
+        for xc in self._xchg:
+            holds = [y[rows, RI] for y, rows, RI in zip(ys, self._shard_rows, xc["RI"])]
+            for y, SM, SI_flat, buf in zip(ys, xc["SM"], xc["SI_flat"], xc["exp"](holds)):
+                y.view(-1, y.shape[-1]).index_add_(0, SI_flat, (buf * SM).reshape(-1, y.shape[-1]))
+        return ys
+
+    def _import(self, x):
+        """:meth:`_import_parts` on a stacked vector (in place on its parts), returned."""
+        return self._join(self._import_parts(self._split(x)))
+
+    def _export(self, y):
+        """:meth:`_export_parts` on a stacked vector (in place on its parts), returned."""
+        return self._join(self._export_parts(self._split(y)))
 
     # -- assembly ---------------------------------------------------------------
 
@@ -276,11 +330,12 @@ class DistributedSystem(_SystemBase):
         self._sbuckets = []
         self._diag = None
         self._ops = None
+        self._gops = None
         self._asm = None
         self._csr = None
         self._gathered = None
         self._cond_aggs = {}
-        self.rhs = self._zeros((self.n_shards, self.n_loc1, self.n_rhs))
+        self.rhs = self._stacked_zeros()
 
     def _condensed(self, c: _Contribution) -> bool:
         blk = c.block
@@ -295,7 +350,7 @@ class DistributedSystem(_SystemBase):
         if c.elem_sel is not None:
             part = part[c.elem_sel]
         E = c.elem_dofs.shape[0]
-        self._sbuckets.append(_ShardBucket(c, self._stacked(part, c.elem_dofs.reshape(E, -1))))
+        self._sbuckets.append(_ShardBucket(c, self._stacked(part, c.elem_dofs.reshape(E, -1)), np.asarray(part)))
         if self._condensed(c):
             self._get_cond_agg(c)
 
@@ -362,10 +417,12 @@ class DistributedSystem(_SystemBase):
         self._finish_rhs_diag(rhs, diag)
 
     def _finish_rhs_diag(self, rhs: torch.Tensor, diag: torch.Tensor) -> None:
+        """The stacked rhs and diagonal (built on the home device over every
+        shard) placed, exported and masked."""
         P, L = self.n_shards, self.n_loc1
         owned = self._owned_mask
-        self.rhs = self._export(rhs.reshape(P, L, self.n_rhs)) * owned[:, :, None]
-        d = self._export(diag.reshape(P, L, 1))[:, :, 0] * owned
+        self.rhs = self._export(self._place(rhs.reshape(P, L, self.n_rhs))) * owned[:, :, None]
+        d = self._export(self._place(diag.reshape(P, L, 1)))[:, :, 0] * owned
         # unit diagonal on non-owned slots and Dirichlet dofs, for Jacobi
         keep = self._free_local * owned
         self._diag = d * keep + (1.0 - keep)
@@ -461,10 +518,16 @@ class DistributedSystem(_SystemBase):
             agg.Y, agg.Z = Y.to(self.dtype), Z.to(self.dtype)
         self.data = data.to(self.dtype)
         a = self._asm
-        self._csr = torch.sparse_csr_tensor(
-            torch.as_tensor(a["indptr"], device=dev), torch.as_tensor(a["cols"], device=dev), self.data,
-            size=(N, N), check_invariants=False,
-        )
+        # one CSR per group: the stacked pattern is block-diagonal by shard
+        L, self._csr = self.n_loc1, []
+        for g in self._groups:
+            r0, r1 = g.lo * L, g.hi * L
+            p0, p1 = int(a["indptr"][r0]), int(a["indptr"][r1])
+            self._csr.append(torch.sparse_csr_tensor(
+                torch.as_tensor(a["indptr"][r0 : r1 + 1] - p0, device=g.device),
+                torch.as_tensor(a["cols"][p0:p1] - r0, device=g.device), self.data[p0:p1].to(g.device),
+                size=(r1 - r0, r1 - r0), check_invariants=False,
+            ))
         diag = torch.zeros(N, dtype=self.dtype, device=dev)
         dp = a["diag_pos"]
         diag.index_add_(0, torch.as_tensor(a["rows"][dp], device=dev), self.data[torch.as_tensor(dp, device=dev)])
@@ -506,37 +569,69 @@ class DistributedSystem(_SystemBase):
         return ("direct", A, B, w), idx
 
     def _operators(self):
-        """[(contribution, op data, gather index)] of the current assembly,
-        built on first use."""
+        """[(contribution, op data, gather index)] of the current assembly over
+        every shard, on the home device, built on first use."""
         if self._ops is None:
             if self._open or self._diag is None:
                 raise RuntimeError("the operator is available after end_assembly")
             self._ops = [(b.c,) + self._bucket_op_data(b) for b in self._sbuckets if b.c.mode != "rhs"]
         return self._ops
 
-    def _raw_apply(self, x: torch.Tensor, state) -> torch.Tensor:
-        """The unconstrained operator on stacked vectors: import, the
-        element (or CSR) apply over every shard at once, export, owned mask."""
-        P, L, r = x.shape
-        xg = self._import(x.clone()).reshape(P * L, r)
-        if self._assembled_mode:
-            y = state @ xg
-        else:
-            cols = [torch.zeros(P * L, dtype=x.dtype, device=x.device) for _ in range(r)]
-            for c, d, idx in state:
-                n_unk = c.elem_dofs.shape[2]
-                for rr in range(r):
-                    x_loc = xg[idx, rr].reshape(idx.shape[0], -1, n_unk)
-                    cols[rr].index_add_(0, idx.reshape(-1), self._local_apply(c, d, x_loc).reshape(-1))
-            y = torch.stack(cols, dim=1)
-        return self._export(y.reshape(P, L, r)) * self._owned_mask[:, :, None]
+    def _group_operators(self) -> list:
+        """Per group, [(contribution, op data, gather index)] over the group's
+        elements on its device, the gather index in the group's stacked slots
+        (each bucket's elements split by the group of their shard)."""
+        if self._gops is None:
+            ops = self._operators()
+            if len(self._groups) == 1:
+                self._gops = [ops]
+                return self._gops
+            buckets = [b for b in self._sbuckets if b.c.mode != "rhs"]
+            group_of = self._shard_group()[np.concatenate([b.part for b in buckets])] if buckets else None
+            self._gops, off = [[] for _ in self._groups], 0
+            for b, (c, d, idx) in zip(buckets, ops):
+                E = len(b.part)
+                gsel = group_of[off : off + E]
+                off += E
+                for gi, g in enumerate(self._groups):
+                    esel = np.nonzero(gsel == gi)[0]
+                    if not len(esel):
+                        continue
+                    et = torch.as_tensor(esel, device=idx.device)
+                    self._gops[gi].append((
+                        c, _split_op(d, et, c.tables.n_qp, g.device), (idx[et] - g.lo * self.n_loc1).to(g.device),
+                    ))
+        return self._gops
+
+    def _raw_apply(self, x, state):
+        """The unconstrained operator on stacked vectors: import, per group
+        the element (or CSR) apply over its shards at once, export, owned mask."""
+        xs = self._import_parts([p.clone() for p in self._split(x)])
+        ys = []
+        for xp, st in zip(xs, state):
+            n, L, r = xp.shape
+            xg = xp.reshape(n * L, r)
+            if self._assembled_mode:
+                y = st @ xg
+            else:
+                cols = [torch.zeros(n * L, dtype=xp.dtype, device=xp.device) for _ in range(r)]
+                for c, d, idx in st:
+                    n_unk = c.elem_dofs.shape[2]
+                    for rr in range(r):
+                        x_loc = xg[idx, rr].reshape(idx.shape[0], -1, n_unk)
+                        cols[rr].index_add_(0, idx.reshape(-1), self._local_apply(c, d, x_loc).reshape(-1))
+                y = torch.stack(cols, dim=1)
+            ys.append(y.reshape(n, L, r))
+        owned = self._split(self._owned_mask)
+        return self._join([y * m[:, :, None] for y, m in zip(self._export_parts(ys), owned)])
 
     def _state(self):
+        """Per group, the operator's data: its CSR, or its element buckets."""
         if self._assembled_mode:
             if self._csr is None:
                 raise RuntimeError("the assembled distributed operator is available after end_assembly")
             return self._csr
-        return self._operators()
+        return self._group_operators()
 
     def raw_operator(self):
         """The constrained distributed operator is built in operator()."""
@@ -620,12 +715,12 @@ class DistributedSystem(_SystemBase):
 
     # -- solver-facing overrides -------------------------------------------------
 
-    def dirichlet_extension(self) -> torch.Tensor:
+    def dirichlet_extension(self):
         g = self._zeros((self.n_shards, self.n_loc1, self.n_rhs))
         if len(self.dirichlet_dofs):
             g[torch.as_tensor(self._dir_shard, device=self.device),
               torch.as_tensor(self._dir_slot, device=self.device)] = self.dirichlet_values
-        return g
+        return self._place(g)
 
     def effective_rhs(self) -> torch.Tensor:
         if self._effective_rhs is None:
@@ -643,22 +738,24 @@ class DistributedSystem(_SystemBase):
             raise RuntimeError("diagonal available after end_assembly")
         return self._diag
 
-    def set_solution_vector(self, x: torch.Tensor) -> None:
-        self.x = x.reshape(self.n_shards, self.n_loc1, self.n_rhs)
+    def set_solution_vector(self, x) -> None:
+        self.x = self._place(x.reshape(self.n_shards, self.n_loc1, self.n_rhs))
 
     def _owner_index(self, device):
         return tuple(torch.as_tensor(a, device=device) for a in self._owner_plan)
 
-    def _to_stacked(self, xg: torch.Tensor) -> torch.Tensor:
-        """A global (n_dofs, r) tensor on the stacked slots (P, n_loc1, r):
-        owned slots only, ghosts and the dump at zero."""
+    def _to_stacked(self, xg: torch.Tensor):
+        """A global (n_dofs, r) tensor on the stacked slots (P, n_loc1, r) in
+        this system's placement: owned slots only, ghosts and the dump at zero."""
         so, lo, go = self._owner_index(xg.device)
         xs = xg.new_zeros((self.n_shards, self.n_loc1, xg.shape[-1]))
         xs[so, lo] = xg[go]
-        return xs
+        return self._place(xs)
 
-    def _to_global(self, xs: torch.Tensor) -> torch.Tensor:
-        """The owned slots of a stacked tensor as a global (n_dofs, r) tensor."""
+    def _to_global(self, xs) -> torch.Tensor:
+        """The owned slots of a stacked tensor as a global (n_dofs, r) tensor
+        (on the home device)."""
+        xs = self._full(xs)
         so, lo, go = self._owner_index(xs.device)
         xg = xs.new_zeros((self.n_dofs, xs.shape[-1]))
         xg[go] = xs[so, lo]
@@ -701,7 +798,8 @@ class DistributedSystem(_SystemBase):
         if len(dof_inds) != len(slot_inds):
             raise ValueError("dof_inds and slot_inds must have equal length")
         s, sl, has = self._update_plan(dof_inds)
-        vals = torch.where(has, self.x[s, sl, rhs_index], torch.zeros((), dtype=self.dtype, device=self.device))
+        x = self._full(self.x)
+        vals = torch.where(has, x[s, sl, rhs_index], torch.zeros((), dtype=self.dtype, device=self.device))
         new = solution_manager.values.clone()
         new[:, slot_inds] = vals.to(dtype=new.dtype, device=new.device)
         if self._cond_aggs:
@@ -720,15 +818,16 @@ class DistributedSystem(_SystemBase):
         solution_manager.values = new
 
     def describe(self, per_shard: bool = False) -> str:
-        """One-line summary; ``per_shard=True`` appends the per-shard table
-        (elements, owned/ghost dofs, halo send/receive widths, local nnz when
-        assembled) with its min/max/total footer."""
+        """One-line summary, with the shards' devices; ``per_shard=True``
+        appends the per-shard table (elements, owned/ghost dofs, halo
+        send/receive widths, local nnz when assembled) with its
+        min/max/total footer."""
         counts = [len(o) for o in self._owned]
         head = (
             f"DistributedSystem: {self.n_dofs} dofs over {self.n_shards} shards "
             f"(owned per shard: min {min(counts)}, max {max(counts)}), "
             f"{len(self.dirichlet_dofs)} Dirichlet dofs, halo width {self._max_send}, "
-            f"{self._n_neighbors} neighbor offsets, dtype={self.dtype}, device={self.device}"
+            f"{self._n_neighbors} neighbor offsets, dtype={self.dtype}, {describe_placement(self._groups)}"
         ) + _last_solve_suffix(self)
         if not per_shard:
             return head

@@ -25,6 +25,11 @@ operator data); their tensor leaves are the differentiable inputs.  The
 preconditioner and the initial guess change only the iteration path, never
 the converged solution, so their cotangents are zero.
 
+The right-hand side, the initial guess and the solution travel as pytree
+leaves, so a distributed system's vectors placed on several devices
+(``parallel/sharded.py:ShardedStack``, a pytree of its parts) solve and
+differentiate like one tensor.
+
 The hand-written CUDA kernels have no backward.  When a const that requires
 grad reaches an operator kind that launches one, ``linear_solve`` raises
 before it solves (``ops/_cuda.py:no_autograd``), rather than return a
@@ -34,8 +39,9 @@ gradient that silently leaves out the kernel's part.
 from __future__ import annotations
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
+from ..parallel.sharded import ShardedStack  # noqa: F401  (registers it as a pytree node)
 from .krylov import cg_solve, gmres_solve
 
 __all__ = ["linear_solve"]
@@ -81,19 +87,27 @@ def _krylov(op, b, x0, M, opts):
 
 
 class _LinearSolve(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, spec: _Spec, n_c: int, b, x0, *tensors):
-        cts, mts = list(tensors[:n_c]), list(tensors[n_c:])
-        consts = spec.consts(cts)
-        u = _krylov(lambda v: spec.fn(v, *consts), b, x0, spec.precond_fn(mts), spec.opts)
-        ctx.spec, ctx.n_c = spec, n_c
-        ctx.save_for_backward(u, *tensors)
-        return u
+    """Inputs: the spec, the number of operator const tensors, the vectors'
+    pytree structure, then the leaves of b and of x0, the operator's and the
+    preconditioner's const tensors; outputs: the leaves of u."""
 
     @staticmethod
-    def backward(ctx, gbar):
-        spec, n_c = ctx.spec, ctx.n_c
-        u, *tensors = ctx.saved_tensors
+    def forward(ctx, spec: _Spec, n_c: int, vtree, *tensors):
+        n_v = vtree.num_leaves
+        b, x0 = (tree_unflatten(list(tensors[i * n_v : (i + 1) * n_v]), vtree) for i in range(2))
+        cts, mts = list(tensors[2 * n_v : 2 * n_v + n_c]), list(tensors[2 * n_v + n_c :])
+        consts = spec.consts(cts)
+        u = tree_leaves(_krylov(lambda v: spec.fn(v, *consts), b, x0, spec.precond_fn(mts), spec.opts))
+        ctx.spec, ctx.n_c, ctx.vtree = spec, n_c, vtree
+        ctx.save_for_backward(*u, *tensors[2 * n_v :])
+        return tuple(u)
+
+    @staticmethod
+    def backward(ctx, *gbar):
+        spec, n_c, vtree = ctx.spec, ctx.n_c, ctx.vtree
+        n_v = vtree.num_leaves
+        saved = ctx.saved_tensors
+        u_l, tensors = [t.detach() for t in saved[:n_v]], saved[n_v:]
         cts, mts = list(tensors[:n_c]), list(tensors[n_c:])
         consts = spec.consts([t.detach() for t in cts])
         M = spec.precond_fn(mts)
@@ -101,31 +115,31 @@ class _LinearSolve(torch.autograd.Function):
             op_T = lambda v: spec.fn(v, *consts)  # noqa: E731
         else:
             with torch.enable_grad():
-                xv = u.detach().requires_grad_()
-                y = spec.fn(xv, *consts)
+                xv = [t.requires_grad_() for t in u_l]
+                y = tree_leaves(spec.fn(tree_unflatten(xv, vtree), *consts))
 
             def op_T(v):  # the exact transpose of the linear apply at u
-                return torch.autograd.grad(y, xv, v, retain_graph=True)[0]
+                return tree_unflatten(list(torch.autograd.grad(y, xv, tree_leaves(v), retain_graph=True)), vtree)
 
         # the forward preconditioner approximates K, not K^T; for GMRES it only
         # changes the path, not the answer, so it is reused
-        lam = _krylov(op_T, gbar, None, M, spec.opts)
-        need = [ctx.needs_input_grad[4 + i] for i in range(n_c)]
+        lam = tree_leaves(_krylov(op_T, tree_unflatten(list(gbar), vtree), None, M, spec.opts))
+        need = [ctx.needs_input_grad[3 + 2 * n_v + i] for i in range(n_c)]
         d_c = [None] * n_c
         if any(need):
             # d consts = -lambda^T (dK/d consts) u: one vector-Jacobian product
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_() if nd else t.detach() for t, nd in zip(cts, need)]
-                y = spec.fn(u.detach(), *spec.consts(ins))
+                y = tree_leaves(spec.fn(tree_unflatten([t.detach() for t in u_l], vtree), *spec.consts(ins)))
                 wrt = [t for t, nd in zip(ins, need) if nd]
                 grads = iter(torch.autograd.grad(y, wrt, lam, allow_unused=True))
             for i, (t, nd) in enumerate(zip(ins, need)):
                 if nd:
                     g = next(grads)
                     d_c[i] = -g if g is not None else torch.zeros_like(t)
-        d_m = [torch.zeros_like(t) if ctx.needs_input_grad[4 + n_c + i] else None for i, t in enumerate(mts)]
-        d_x0 = torch.zeros_like(u) if ctx.needs_input_grad[3] else None
-        return (None, None, lam, d_x0, *d_c, *d_m)
+        d_m = [torch.zeros_like(t) if ctx.needs_input_grad[3 + 2 * n_v + n_c + i] else None for i, t in enumerate(mts)]
+        d_x0 = [torch.zeros_like(t) if ctx.needs_input_grad[3 + n_v + i] else None for i, t in enumerate(u_l)]
+        return (None, None, None, *lam, *d_x0, *d_c, *d_m)
 
 
 def linear_solve(
@@ -163,5 +177,6 @@ def linear_solve(
     if torch.is_grad_enabled() and any(t.requires_grad for t in cts):
         with torch.enable_grad():  # a kernel that would take such a const raises here
             spec.fn(b2.detach(), *spec.consts(cts))
-    u = _LinearSolve.apply(spec, len(cts), b2, x0, *cts, *mts)
+    b_l, vtree = tree_flatten(b2)
+    u = tree_unflatten(list(_LinearSolve.apply(spec, len(cts), vtree, *b_l, *tree_leaves(x0), *cts, *mts)), vtree)
     return u[:, 0] if squeeze else u

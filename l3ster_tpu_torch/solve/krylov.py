@@ -150,8 +150,12 @@ def _col_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-column inner products of (..., n_rhs) multivectors -> (n_rhs,):
     the sum runs over every leading axis, so a distributed system's stacked
     (n_shards, n_loc, n_rhs) vectors (ghost and dump slots held at zero)
-    reduce like (n, n_rhs) ones."""
-    return (a * b).reshape(-1, a.shape[-1]).sum(dim=0)
+    reduce like (n, n_rhs) ones.  It takes each shard's partial sum first and
+    then sums the partials over the shards (the reference's local sum and
+    ``psum``), so shards placed on several devices
+    (``parallel/sharded.py:ShardedStack``) sum in the same order as on one."""
+    ab = a * b
+    return ab.reshape(ab.shape[0], -1, ab.shape[-1]).sum(dim=1).sum(dim=0)
 
 
 def _residual_scale(b, r0, residual_scaling: str):
@@ -263,8 +267,7 @@ def gmres_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, r
     while it < max_iters and bool(res > tol):
         z = M(b2 - operator(x))
         beta = _col_dots(z, z).sqrt()
-        V = torch.zeros((m + 1,) + b2.shape, dtype=dt, device=b2.device)
-        V[0] = z * _gmres_div(torch.ones_like(beta), beta)
+        V = [z * _gmres_div(torch.ones_like(beta), beta)]
         R = torch.zeros((m + 1, m, n_rhs), **host)
         cs, sn = torch.zeros((m, n_rhs), **host), torch.zeros((m, n_rhs), **host)
         g = torch.zeros((m + 1, n_rhs), **host)
@@ -282,7 +285,7 @@ def gmres_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, r
                 hs.append(hi)
                 w = w - V[i] * hi
             hj1 = _col_dots(w, w).sqrt()
-            V[j + 1] = w * _gmres_div(torch.ones_like(hj1), hj1)
+            V.append(w * _gmres_div(torch.ones_like(hj1), hj1))
             h = torch.zeros((m + 1, n_rhs), **host)
             h[: j + 2] = torch.stack(hs + [hj1]).cpu()
             for i in range(j):
@@ -295,7 +298,10 @@ def gmres_solve(operator, b, x0=None, precond=None, tol=1e-10, max_iters=1000, r
             R[:, j] = h
             j += 1
         y = _back_substitute(R[:m], g[:m], m).to(b2.device)
-        x = x + (V[:j] * y[:j].reshape((j,) + (1,) * (b2.ndim - 1) + (n_rhs,))).sum(dim=0)
+        upd = V[0] * y[0]
+        for i in range(1, j):
+            upd = upd + V[i] * y[i]
+        x = x + upd
         r = b2 - operator(x)
         res = ((_col_dots(r, r).sqrt() / bnorm).max()).cpu()
         it += j

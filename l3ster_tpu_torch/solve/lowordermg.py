@@ -28,7 +28,8 @@ On a :class:`~l3ster_tpu_torch.parallel.box.BoxSystem` the V-cycle is
 window-decomposed: level 0 smooths with the box operator itself, the
 restriction contracts each shard's window with window-sliced interpolation
 bands (ghost and padding rows zero) and sums over the shards, and every
-level below runs on the whole coarse vector, as on one device.
+level below runs on the whole coarse vector, as on one device (on shards
+placed on several devices, the first group's device).
 """
 
 from __future__ import annotations
@@ -510,4 +511,4 @@ class LowOrderMG:
                 z = z + vcycle0(r - fn_box(z, *ocs))
             return z
 
-        return apply, tuple(oc) + (dinv, box._free_st, t(Pz_sl), t(Py_sl), t(Pxb)) + coarse_consts
+        return apply, tuple(oc) + (dinv, box._free_st, box._place(t(Pz_sl)), box._place(t(Py_sl)), t(Pxb)) + coarse_consts

@@ -31,7 +31,9 @@ with the system's operator (its halo exchange inside), a restriction whose
 Q1 weights are zeroed outside each shard's owned slots and summed over the
 shards (the reference's ``psum``), the coarse ``Binv @ r`` on the whole
 coarse vector (the reference replicates it on every shard), and a gather for
-the prolongation; the result is masked to the owned slots.
+the prolongation; the result is masked to the owned slots.  On shards placed
+on several devices the stencils are placed with them and the coarse level
+lives on the first group's device (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -259,8 +261,8 @@ class PMultigrid:
             cnb[p, : len(own)] = nbr_np[node] * n_unk + unk[:, None]
             cwt[p, : len(own)] = wts_np[node]
         return dict(
-            cnb=torch.as_tensor(cnb, device=system.device),
-            cwt=torch.as_tensor(cwt, dtype=system.dtype, device=system.device),
+            cnb=system._place(torch.as_tensor(cnb, device=system.device)),
+            cwt=system._place(torch.as_tensor(cwt, dtype=system.dtype, device=system.device)),
         )
 
     def _make_apply_distributed(self, fn, n_oc: int, st: dict):

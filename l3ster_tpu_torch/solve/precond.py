@@ -21,7 +21,9 @@ solves on each shard's block of the gathered CSR (``overlap`` 0: owned
 dofs, no exchange; 1: owned and ghost dofs, import -> local solve -> export
 -> owned mask, symmetric and CG-safe), as Ifpack2 runs under MPI; and
 BlockJacobi inverts the same node blocks as on one device, each on the
-shard owning the node.
+shard owning the node.  Their per-shard data are built per placement group
+of the system, on the group's device, and applied group by group
+(``DistributedSystem._group_map``).
 """
 
 from __future__ import annotations
@@ -83,6 +85,24 @@ def _schwarz_csrs(system, who: str, overlap: int = 1):
             np.concatenate([sub.indptr.astype(np.int64), nnz + 1 + np.arange(n_pad, dtype=np.int64)]),
         ))
     return out, n
+
+
+def _per_group(system, csrs, build):
+    """The per-shard local solve of additive Schwarz over the shards' local
+    CSRs, built per placement group: ``build(the group's CSRs, device) ->
+    (fn, consts)`` with ``fn(r_group, *consts)``.  Returns ``(local,
+    (consts per group,))`` with ``local(r, consts_per_group)``."""
+    fns, css = [], []
+    for g in system._groups:
+        fn, cs = build(csrs[g.lo : g.hi], g.device)
+        fns.append(fn)
+        css.append(tuple(cs))
+
+    def local(r, css):
+        return system._group_map(lambda gi, rg: fns[gi](rg, *css[gi]), r)
+
+    local.n_levels = max(getattr(f, "n_levels", 0) for f in fns)
+    return local, (css,)
 
 
 def _stacked_spmv(csrs, n: int, dtype, device):
@@ -300,17 +320,33 @@ class BlockJacobi:
     def setup_parts(self, system):
         if _is_distributed(system):
             # the gathered matrix's blocks, each applied on the stacked slots of
-            # the shard owning its dofs (pad: one past the last slot)
-            d = system.diagonal()
+            # the shard owning its dofs (a node's dofs share one owner), per
+            # placement group (pad: one past the group's last slot)
             data, indices, indptr, n = system.gathered_csr()
             blocks = self._blocks(system, n)
-            Binv = self._inverses(torch.as_tensor(data, dtype=d.dtype, device=d.device), indices, indptr, n, blocks)
-            g = np.minimum(blocks, n - 1)
-            stacked = np.full(blocks.shape, system.n_shards * system.n_loc1, dtype=np.int64)
-            for p in range(system.n_shards):
-                m = (blocks < n) & (system._owner[g] == p)
-                stacked[m] = p * system.n_loc1 + system._g2l_map(p, blocks[m])
-            return _blockjacobi_stacked_apply, (Binv, torch.as_tensor(stacked, device=d.device))
+            Binv = self._inverses(
+                torch.as_tensor(data, dtype=system.dtype, device=system.device), indices, indptr, n, blocks
+            )
+            L, real = system.n_loc1, blocks < n
+            owner = system._owner[np.minimum(blocks, n - 1)]  # (M, K): each dof's shard
+            group = system._shard_group()[owner]
+            if (real & (group != group[:, :1])).any():
+                raise ValueError("BlockJacobi: a block spans two placement groups")
+            Binvs, stacks = [], []
+            for gi, g in enumerate(system._groups):
+                mine = np.nonzero(group[:, 0] == gi)[0]
+                bl, ow = blocks[mine], owner[mine]
+                stacked = np.full(bl.shape, g.n * L, dtype=np.int64)
+                for p in range(g.lo, g.hi):
+                    m = (bl < n) & (ow == p)
+                    stacked[m] = (p - g.lo) * L + system._g2l_map(p, bl[m])
+                Binvs.append(Binv[torch.as_tensor(mine, device=Binv.device)].to(g.device))
+                stacks.append(torch.as_tensor(stacked, device=g.device))
+
+            def apply(r, Binvs, stacks):
+                return system._group_map(lambda gi, rg: _blockjacobi_stacked_apply(rg, Binvs[gi], stacks[gi]), r)
+
+            return apply, (Binvs, stacks)
         data, indices, indptr, n = _assembled_csr(system, "BlockJacobi")
         blocks = self._blocks(system, n)  # (M, K), pad = n
         return _blockjacobi_apply, (self._inverses(data, indices, indptr, n, blocks), torch.as_tensor(blocks, device=data.device))
@@ -375,40 +411,44 @@ class SGS:
         """Per-shard local SGS (additive Schwarz).  ``sweeps`` relaxes each
         shard's local matrix inside the Schwarz solve (Ifpack2's
         processor-block relaxation), which keeps the local M SPD."""
-        d = system.diagonal()
+        dtype = system.dtype
         csrs, n = _schwarz_csrs(system, "SGS", self.overlap)
-        fwd, cf = tri.build_tri_solve_stacked(csrs, n, True, False, d.dtype, d.device)
-        bwd, cb = tri.build_tri_solve_stacked(csrs, n, False, False, d.dtype, d.device)
-        dstk = np.ones((len(csrs), n))
-        for p, (dd, ii, pp) in enumerate(csrs):
-            rows = np.repeat(np.arange(n), np.diff(pp))
-            sel = rows == ii
-            dstk[p, rows[sel]] = dd[sel]
-        nf, n_tri = len(cf), len(cf) + len(cb)
-
-        def M_loc(r, cs):
-            return bwd(fwd(r, *cs[1 : 1 + nf]) * cs[0][..., None], *cs[1 + nf : 1 + n_tri])
-
-        tri_consts = (torch.as_tensor(dstk, dtype=d.dtype, device=d.device), *cf, *cb)
-        if self.sweeps <= 1:
-
-            def local(r, *cs):
-                return M_loc(r, cs)
-
-            local.n_levels = fwd.n_levels + bwd.n_levels
-            return _schwarz_wrap(system, local, tri_consts, self.overlap)
-        spmv, scs = _stacked_spmv(csrs, n, d.dtype, d.device)
         n_sweeps = self.sweeps
 
-        def local(r, *cs):
-            tri_cs, sp_cs = cs[: 1 + n_tri], cs[1 + n_tri :]
-            z = M_loc(r, tri_cs)
-            for _ in range(n_sweeps - 1):
-                z = z + M_loc(r - spmv(z, *sp_cs), tri_cs)
-            return z
+        def build(csrs, device):
+            fwd, cf = tri.build_tri_solve_stacked(csrs, n, True, False, dtype, device)
+            bwd, cb = tri.build_tri_solve_stacked(csrs, n, False, False, dtype, device)
+            dstk = np.ones((len(csrs), n))
+            for p, (dd, ii, pp) in enumerate(csrs):
+                rows = np.repeat(np.arange(n), np.diff(pp))
+                sel = rows == ii
+                dstk[p, rows[sel]] = dd[sel]
+            nf, n_tri = len(cf), len(cf) + len(cb)
 
-        local.n_levels = fwd.n_levels + bwd.n_levels
-        return _schwarz_wrap(system, local, (*tri_consts, *scs), self.overlap)
+            def M_loc(r, cs):
+                return bwd(fwd(r, *cs[1 : 1 + nf]) * cs[0][..., None], *cs[1 + nf : 1 + n_tri])
+
+            tri_consts = (torch.as_tensor(dstk, dtype=dtype, device=device), *cf, *cb)
+            if n_sweeps <= 1:
+
+                def local(r, *cs):
+                    return M_loc(r, cs)
+
+                local.n_levels = fwd.n_levels + bwd.n_levels
+                return local, tri_consts
+            spmv, scs = _stacked_spmv(csrs, n, dtype, device)
+
+            def local(r, *cs):
+                tri_cs, sp_cs = cs[: 1 + n_tri], cs[1 + n_tri :]
+                z = M_loc(r, tri_cs)
+                for _ in range(n_sweeps - 1):
+                    z = z + M_loc(r - spmv(z, *sp_cs), tri_cs)
+                return z
+
+            local.n_levels = fwd.n_levels + bwd.n_levels
+            return local, (*tri_consts, *scs)
+
+        return _schwarz_wrap(system, *_per_group(system, csrs, build), self.overlap)
 
     def setup_parts(self, system):
         if _is_distributed(system):
@@ -458,18 +498,22 @@ class ILU0:
     def setup_parts(self, system):
         if _is_distributed(system):
             # additive Schwarz with per-shard ILU(0) local solves
-            d = system.diagonal()
+            dtype = system.dtype
             csrs, n = _schwarz_csrs(system, "ILU0", self.overlap)
-            facs = [(tri.ilu0_factor(dd, ii, pp, n), ii, pp) for dd, ii, pp in csrs]
-            fwd, cf = tri.build_tri_solve_stacked(facs, n, True, True, d.dtype, d.device)
-            bwd, cb = tri.build_tri_solve_stacked(facs, n, False, False, d.dtype, d.device)
-            nf = len(cf)
 
-            def local(r, *cs):
-                return bwd(fwd(r, *cs[:nf]), *cs[nf:])
+            def build(csrs, device):
+                facs = [(tri.ilu0_factor(dd, ii, pp, n), ii, pp) for dd, ii, pp in csrs]
+                fwd, cf = tri.build_tri_solve_stacked(facs, n, True, True, dtype, device)
+                bwd, cb = tri.build_tri_solve_stacked(facs, n, False, False, dtype, device)
+                nf = len(cf)
 
-            local.n_levels = fwd.n_levels + bwd.n_levels
-            return _schwarz_wrap(system, local, (*cf, *cb), self.overlap)
+                def local(r, *cs):
+                    return bwd(fwd(r, *cs[:nf]), *cs[nf:])
+
+                local.n_levels = fwd.n_levels + bwd.n_levels
+                return local, (*cf, *cb)
+
+            return _schwarz_wrap(system, *_per_group(system, csrs, build), self.overlap)
         data, indices, indptr, n = _assembled_csr(system, "ILU0")
         fac = tri.ilu0_factor(_host_f64(data), indices, indptr, n)
         fwd, cf, bwd, cb = _tri_pair(fac, indices, indptr, n, data.dtype, data.device, True)
@@ -503,30 +547,35 @@ class ILUT:
         import scipy.sparse as sp
         import scipy.sparse.linalg as spla
 
-        d = system.diagonal()
+        dtype = system.dtype
         csrs, n = _schwarz_csrs(system, "ILUT", self.overlap)
-        Ls, Us, prs, pcs = [], [], [], []
-        for dd, ii, pp in csrs:
-            ilu = spla.spilu(sp.csr_matrix((dd, ii, pp), shape=(n, n)).tocsc(),
-                             drop_tol=self.drop_tol, fill_factor=self.fill_factor)
-            L, U = ilu.L.tocsr(), ilu.U.tocsr()
-            Ls.append((L.data, L.indices, L.indptr))
-            Us.append((U.data, U.indices, U.indptr))
-            prs.append(np.asarray(ilu.perm_r, dtype=np.int64))
-            pcs.append(np.asarray(ilu.perm_c, dtype=np.int64))
-        fwd, cf = tri.build_tri_solve_stacked(Ls, n, True, True, d.dtype, d.device)
-        bwd, cb = tri.build_tri_solve_stacked(Us, n, False, False, d.dtype, d.device)
-        nf = len(cf)
-        rows = torch.arange(len(csrs), device=d.device)[:, None]
+        drop_tol, fill_factor = self.drop_tol, self.fill_factor
 
-        def local(r, pr, pc_, *cs):
-            t = torch.zeros_like(r)
-            t[rows, pr] = r
-            return bwd(fwd(t, *cs[:nf]), *cs[nf:])[rows, pc_]
+        def build(csrs, device):
+            Ls, Us, prs, pcs = [], [], [], []
+            for dd, ii, pp in csrs:
+                ilu = spla.spilu(sp.csr_matrix((dd, ii, pp), shape=(n, n)).tocsc(),
+                                 drop_tol=drop_tol, fill_factor=fill_factor)
+                L, U = ilu.L.tocsr(), ilu.U.tocsr()
+                Ls.append((L.data, L.indices, L.indptr))
+                Us.append((U.data, U.indices, U.indptr))
+                prs.append(np.asarray(ilu.perm_r, dtype=np.int64))
+                pcs.append(np.asarray(ilu.perm_c, dtype=np.int64))
+            fwd, cf = tri.build_tri_solve_stacked(Ls, n, True, True, dtype, device)
+            bwd, cb = tri.build_tri_solve_stacked(Us, n, False, False, dtype, device)
+            nf = len(cf)
+            rows = torch.arange(len(csrs), device=device)[:, None]
 
-        local.n_levels = fwd.n_levels + bwd.n_levels
-        pr, pc_ = (torch.as_tensor(np.stack(a), device=d.device) for a in (prs, pcs))
-        return _schwarz_wrap(system, local, (pr, pc_, *cf, *cb), self.overlap)
+            def local(r, pr, pc_, *cs):
+                t = torch.zeros_like(r)
+                t[rows, pr] = r
+                return bwd(fwd(t, *cs[:nf]), *cs[nf:])[rows, pc_]
+
+            local.n_levels = fwd.n_levels + bwd.n_levels
+            pr, pc_ = (torch.as_tensor(np.stack(a), device=device) for a in (prs, pcs))
+            return local, (pr, pc_, *cf, *cb)
+
+        return _schwarz_wrap(system, *_per_group(system, csrs, build), self.overlap)
 
     def setup_parts(self, system):
         import scipy.sparse as sp

@@ -9,8 +9,11 @@ of the reference's box apply and of the port's single-system apply, with its
 ghost and padding planes zero; CG + Jacobi and CG + the box LowOrderMG (from
 the same power-iteration start vector) within one iteration of the
 reference's, the solution within 1e-10; and the apply of a sheared cube,
-whose windows carry full per-QP Jacobians.  The reference runs its volume
-kernel as LATTICE_SF (its AUTO takes the lattice path only on a TPU).
+whose windows carry full per-QP Jacobians.  The port's shards are stacked in
+one group, or placed with ``devices=["cpu"] * P`` (one placement group a
+shard, the counterpart of the reference's virtual devices), with the same
+bars.  The reference runs its volume kernel as LATTICE_SF (its AUTO takes the
+lattice path only on a TPU).
 """
 
 import jax
@@ -30,7 +33,11 @@ from tests.test_torch_distributed import jitted_shard_maps  # noqa: F401  (modul
 from tests.test_torch_system import _build, _rel, fast_reference_compiles, jax_run  # noqa: F401
 
 REL = 1e-11
-CASES = [(2, None), (4, None), (4, (2, 2)), (8, (2, 4))]
+CASES = [(2, None, False), (4, None, False), (4, (2, 2), False), (8, (2, 4), False), (2, None, True), (4, (2, 2), True)]
+
+
+def _ids(cases):
+    return [f"{n}-{'x'.join(map(str, g)) if g else 'z'}{'-placed' if p else ''}" for n, g, p in cases]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -58,12 +65,16 @@ def systems():
 _BOXES: dict = {}
 
 
-def boxes(systems, n_shards, grid):
-    key = (n_shards, grid)
-    if key not in _BOXES:
-        _, sj, sp_ = systems
-        _BOXES[key] = (box_j(sj, n_shards=n_shards, grid=grid), lp.box_parallelize(sp_, n_shards=n_shards, grid=grid))
-    return _BOXES[key]
+def boxes(systems, n_shards, grid, placed=False):
+    """(reference box, port box), built once; one reference box serves the
+    port's stacked and placed boxes."""
+    _, sj, sp_ = systems
+    if (n_shards, grid) not in _BOXES:
+        _BOXES[(n_shards, grid)] = box_j(sj, n_shards=n_shards, grid=grid)
+    if (n_shards, grid, placed) not in _BOXES:
+        devices = ["cpu"] * n_shards if placed else None
+        _BOXES[(n_shards, grid, placed)] = lp.box_parallelize(sp_, n_shards=n_shards, grid=grid, devices=devices)
+    return _BOXES[(n_shards, grid)], _BOXES[(n_shards, grid, placed)]
 
 
 @pytest.fixture(scope="module")
@@ -83,10 +94,11 @@ def _off_owned_zero(bp, v) -> bool:
     return bool((v.numpy()[bp._own_st.numpy() == 0] == 0).all())
 
 
-@pytest.mark.parametrize("n_shards,grid", CASES)
-def test_box_apply_matches_reference(systems, n_shards, grid):
+@pytest.mark.parametrize("n_shards,grid,placed", CASES, ids=_ids(CASES))
+def test_box_apply_matches_reference(systems, n_shards, grid, placed):
     _, sj, sp_ = systems
-    bj, bp = boxes(systems, n_shards, grid)
+    bj, bp = boxes(systems, n_shards, grid, placed)
+    assert len(bp._groups) == (n_shards if placed else 1)
     assert (bp._nez_real, bp._ney_real, bp._n1_loc) == (bj._nez_real, bj._ney_real, bj._n1_loc)
     xg = np.random.default_rng(n_shards).normal(size=(sj.n_dofs, 1))
     x_st = np.asarray(bj._to_slabs(xg))
@@ -97,6 +109,10 @@ def test_box_apply_matches_reference(systems, n_shards, grid):
     assert _off_owned_zero(bp, y)
     assert _rel(bp._from_slabs(y), sp_.operator()(torch.as_tensor(xg))) < REL
     assert _rel(bp.diagonal(), bj.diagonal()) < REL and _rel(bp.effective_rhs(), bj.effective_rhs()) < REL
+    if placed:  # each shard's window data and vector part on its group's device
+        assert [t.shape[0] for t in y.parts] == [g.n for g in bp._groups]
+        assert all(t.device == g.device for t, g in zip(y.parts, bp._groups))
+        assert "shards 0" in bp.describe()
 
 
 def _solve(box, pkg, precond):
@@ -112,14 +128,17 @@ def test_box_cg_jacobi_matches_reference(systems, n_shards, grid):
     assert np.abs(bp.inner.x.numpy() - np.asarray(bj.inner.x)).max() < 1e-10
 
 
-@pytest.mark.parametrize("n_shards,grid", [(4, None), (4, (2, 2)), (8, (2, 4))])
-def test_box_lowordermg_matches_reference(systems, n_shards, grid):
+MG_CASES = [(4, None, False), (4, (2, 2), False), (8, (2, 4), False), (2, None, True), (4, (2, 2), True)]
+
+
+@pytest.mark.parametrize("n_shards,grid,placed", MG_CASES, ids=_ids(MG_CASES))
+def test_box_lowordermg_matches_reference(systems, n_shards, grid, placed):
     """One V-cycle within 1e-11, then CG + LowOrderMG: iterations within one
     of the reference's box solve and within two of the port's single-system
     solve (the reference's bar, ``tests/test_box.py``); solution within 1e-10,
     T = x recovered."""
     mesh, _, sp_ = systems
-    bj, bp = boxes(systems, n_shards, grid)
+    bj, bp = boxes(systems, n_shards, grid, placed)
     r = np.array(bj.effective_rhs())
     # through the solvers' setup caches, which the CG solves below reuse
     fj, cj = parts_j(lt.LowOrderMG(), bj, "dof")

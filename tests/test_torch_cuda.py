@@ -220,6 +220,33 @@ def test_qp_kernel_shorter_rings(cuda, layout, c, n_eq, nbuf):
     _qp_check(layout, *case)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "lattice"])
+@pytest.mark.parametrize("n_nz, tile", [(900, 128), (1792, 128)])
+@pytest.mark.parametrize("E, Q", [(40, 64), (9, 125)])
+def test_qp_kernel_smaller_tiles(cuda, layout, n_nz, tile, E, Q):
+    """The widest multi-RHS stacking (dim 3, c = 16, n_eq = 28) with 900 and
+    all 1,792 entries of A nonzero: one 256-QP f64 tile does not fit in shared memory,
+    and the kernel runs 128-QP tiles, against its plain version to 1e-11
+    (f64) and 2e-5 (f32, which keeps the 256-QP tile); the constant tables'
+    limits are those the host checks."""
+    from l3ster_tpu_torch.ops._cuda import CA_LIMITS, coefficient_tables
+    from l3ster_tpu_torch.ops.qp import _library, _tile_shape, kernel_occupancy, launch_shape
+
+    lib = _library()
+    assert (lib.ca_max_entries(), lib.ca_max_equations(), lib.ca_max_slots()) == CA_LIMITS
+    rng = np.random.default_rng(n_nz + Q)
+    A, G, ji, w = _qp_case(rng, layout, 3, 16, 28, E, Q)
+    A = np.zeros_like(A)
+    flat = A.reshape(-1)
+    flat[rng.choice(flat.size, n_nz, replace=False)] = rng.normal(size=n_nz)
+    assert len(coefficient_tables(A)[3]) == n_nz
+    assert launch_shape(3, 16, 28, n_nz, 8, _tile_shape()[1])["tile"] == tile
+    occ = kernel_occupancy(torch.float64, A, 3, 16, E * Q, layout == "lattice", device=cuda)
+    assert (occ["tile"], occ["threads"]) == (tile, tile) and occ["blocks_per_sm"] >= 1
+    _qp_check(layout, A, G, ji, w)
+
+
 def _check_sumfact(cuda, dim, order, qo, E, c, n_eq, seed):
     """The fused kernel against its plain version (f64 on the CPU), in each
     dtype whose element fits one block (p = 6 in 3D fits only in f32)."""
@@ -298,7 +325,9 @@ def _adiabatic_3d(inp, out):
         ops[0][0, 1 + k] = inp.normal[k]
 
 
-def _cylinder_system(strategy, device):
+def _cylinder_system(strategy, device, n_shards=0, devices=None):
+    """The small cylinder problem (p = 2, f64); on ``n_shards`` shards of a
+    DistributedSystem, placed with ``devices``, when given."""
     mesh = lp.generate_mesh(
         lp.make_cylinder_in_channel_3d(
             distz=np.linspace(-1, 1, 3), left_offset=4.0, right_offset=6.0, bottom_offset=3.0,
@@ -310,7 +339,12 @@ def _cylinder_system(strategy, device):
     bcs = lp.BCDefinition(problem)
     bcs.define_dirichlet([3, 4, 5], [0])
     params = lp.AlgebraicSystemParams(eval_strategy=lp.OperatorEvaluationStrategy.MATRIX_FREE)
-    system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=torch.float64, device=device)
+    if n_shards:
+        system = lp.make_distributed_system(
+            mesh, problem, bcs, params, n_shards=n_shards, dtype=torch.float64, device=device, devices=devices
+        )
+    else:
+        system = lp.make_algebraic_system(mesh, problem, bcs, params, dtype=torch.float64, device=device)
     kdir = lp.wrap_boundary_residual_kernel(lambda i, o: o.__setitem__(0, i.point.x), lp.KernelParams(3, 1))
     system.set_dirichlet_bc_values(kdir, [3, 4, 5], [0])
     system.begin_assembly()
@@ -859,3 +893,66 @@ def test_zsweep_raises_on_empty_window(cuda):
         g = ("full", torch.ones((9, 0, 16), device=cuda), torch.zeros((0, 16), device=cuda))
         fused_z_sweep(A, b, b, b, g, tabs)
     assert zsweep.launch_count == before
+
+
+def _card_devices(n: int) -> list:
+    """Placement entries on the cards: the first min(D, n) of D >= 2 cards,
+    else n entries of the one card."""
+    D = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(min(D, n))] if D >= 2 else ["cuda:0"] * n
+
+
+def _sync_cards() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+@pytest.mark.cuda
+def test_placed_distributed_system_on_cards(cuda):
+    """The small cylinder problem (AUTO: ``dense_const`` with the per-QP
+    kernel, f64) on 4 shards placed on the cards (one placement group an
+    entry: every card, or four groups of the one card): the apply and the
+    effective rhs equal the one-group system's to 1e-12 with each group's
+    part on its card and the kernel launched on every card; CG + Jacobi
+    within one iteration and 1e-10 of it."""
+    from l3ster_tpu_torch.ops import qp
+
+    devices = _card_devices(4)
+    one, placed = _cylinder_system("AUTO", cuda, n_shards=4), _cylinder_system("AUTO", None, n_shards=4, devices=devices)
+    x = torch.as_tensor(np.random.default_rng(23).normal(size=(4, one.n_loc1, 1)), device=cuda)
+    x = x * one._owned_mask[:, :, None]
+    (f1, c1), (f4, c4) = one.operator_parts(), placed.operator_parts()
+    qp.launches_by_device.clear()
+    y = f4(x, *c4)
+    _sync_cards()
+    assert [p.device for p in y.parts] == [torch.device(d) for d in devices]
+    assert set(qp.launches_by_device) == {torch.device(d).index for d in devices}
+    assert _rel(y.cpu(), f1(x, *c1).cpu()) < 1e-12
+    assert _rel(placed.effective_rhs().cpu(), one.effective_rhs().cpu()) < 1e-12
+    opts = lp.IterSolverOpts(tol=1e-10, max_iters=5000)
+    r1, r4 = one.solve(lp.CG(opts, precond=lp.Jacobi())), placed.solve(lp.CG(opts, precond=lp.Jacobi()))
+    assert r4.converged and abs(r4.num_iters - r1.num_iters) <= 1
+    assert _rel(placed.x.cpu(), one.x.cpu()) < 1e-10
+
+
+@pytest.mark.cuda
+def test_placed_box_on_cards(cuda):
+    """The bench box (p = 3 on 4^3 hexes, f64) at 2 z slabs placed on the
+    cards: its apply equals the one-group box's to 1e-12, one z-sweep launch
+    a shard, on its card."""
+    from l3ster_tpu_torch.ops import zsweep
+
+    single = _box_system(_diffusion_3d, cuda, n_1d=5)
+    devices = _card_devices(2)
+    one, placed = lp.box_parallelize(single, n_shards=2), lp.box_parallelize(single, n_shards=2, devices=devices)
+    xg = torch.as_tensor(np.random.default_rng(24).normal(size=(single.n_dofs, 1)), device=cuda)
+    y1 = one._from_slabs(one.operator()(one._to_slabs(xg)))
+    zsweep.launches_by_device.clear()
+    y = placed.operator()(placed._to_slabs(xg))
+    _sync_cards()
+    assert [p.device for p in y.parts] == [torch.device(d) for d in devices]
+    want = {}
+    for d in devices:
+        want[torch.device(d).index] = want.get(torch.device(d).index, 0) + 1
+    assert zsweep.launches_by_device == want
+    assert _rel(placed._from_slabs(y).cpu(), y1.cpu()) < 1e-12

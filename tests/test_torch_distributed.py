@@ -4,13 +4,16 @@ In f64 on the CPU, on the reference tests' 2D diffusion problem
 (``tests/test_distributed.py``: 3x3 quads of order 2, T = x on the left and
 right sides, adiabatic top and bottom; order 3 under condensation), at 1, 2
 and 4 shards (the reference's on the 8 virtual CPU devices of
-``tests/conftest.py``, the port's stacked on the CPU).  Exact: the
+``tests/conftest.py``, the port's stacked on the CPU, and placed with
+``devices=["cpu"] * P``: one placement group a shard, the counterpart of the
+reference's virtual devices).  Exact: the
 ownership and halo plan (owned and ghost dofs, ``n_loc1``, each ring
 offset's send and receive slots and send mask), the gathered CSR's pattern
 and the shard blocks.  Within 1e-11 relative: the stacked operator apply,
 rhs, diagonal and effective rhs.  CG iteration counts within 1, solutions
 within 1e-10: matrix-free, assembled and condensed, GMRES, and the direct
 solvers.  Ghost and dump slots of solver-facing vectors stay exactly zero.
+Placed on several groups, the f64 results are those of one group to 1e-13.
 The reference runs its volume kernel as DENSE_MXU (its AUTO takes the dense
 apply only on a TPU); the port's AUTO takes it everywhere.  The systems are
 built once per module.
@@ -52,9 +55,10 @@ def _mesh(order=2, n=4):
     return lt.generate_mesh(lt.make_square_mesh(np.linspace(0.0, 1.0, n)), order=order)
 
 
-def build(pkg, mesh, n_shards, assembled=False, cond=False):
+def build(pkg, mesh, n_shards, assembled=False, cond=False, placed=False):
     """The diffusion problem of ``tests/test_distributed.py`` on ``n_shards``
-    shards, assembled (in both packages' own way) and with T = x set."""
+    shards, assembled (in both packages' own way) and with T = x set;
+    ``placed``: the port's shards on ``devices=["cpu"] * n_shards``."""
     problem = pkg.ProblemDefinition(3, [0])
     bcs = pkg.BCDefinition(problem)
     bcs.define_dirichlet([3, 4], [0])
@@ -73,7 +77,8 @@ def build(pkg, mesh, n_shards, assembled=False, cond=False):
         opts = lt.AssemblyOptions(value_order=1, derivative_order=0, eval_strategy=lt.LocalEvalStrategy.DENSE_MXU)
     else:
         system = lp.make_distributed_system(
-            _port_mesh(mesh), problem, bcs, params, n_shards=n_shards, dtype=torch.float64, device="cpu"
+            _port_mesh(mesh), problem, bcs, params, n_shards=n_shards, dtype=torch.float64, device="cpu",
+            devices=["cpu"] * n_shards if placed else None,
         )
         opts = lp.AssemblyOptions(value_order=1, derivative_order=0)
     system.set_dirichlet_bc_values(kdir, [3, 4], [0])
@@ -87,19 +92,42 @@ def build(pkg, mesh, n_shards, assembled=False, cond=False):
 _CACHE: dict = {}
 
 
-def pair(n_shards, assembled=False, cond=False):
-    """(mesh, reference system, port system), built once per module."""
+def pair(n_shards, assembled=False, cond=False, placed=False):
+    """(mesh, reference system, port system), built once per module; the
+    port's shards ``placed`` on ``devices=["cpu"] * n_shards`` or stacked in
+    one group, beside one reference system."""
     key = (n_shards, assembled, cond)
     if key not in _CACHE:
         mesh = _mesh(order=3 if cond else 2)
-        _CACHE[key] = (mesh, build(lt, mesh, n_shards, assembled, cond), build(lp, mesh, n_shards, assembled, cond))
-    return _CACHE[key]
+        _CACHE[key] = (mesh, build(lt, mesh, n_shards, assembled, cond))
+    if key + (placed,) not in _CACHE:
+        mesh = _CACHE[key][0]
+        _CACHE[key + (placed,)] = build(lp, mesh, n_shards, assembled, cond, placed)
+    return _CACHE[key] + (_CACHE[key + (placed,)],)
+
+
+# (shards, placed on as many "cpu" entries): every parity test takes the
+# placed case at 2 and 4 shards beside the stacked one
+SHARDS = [(1, False), (2, False), (4, False), (2, True), (4, True)]
+SHARDS_24 = SHARDS[1:]
+
+
+def _ids(cases):
+    return [f"{n}{'-placed' if p else ''}" for n, p in cases]
 
 
 def _stacked_x(sp_, seed):
     """A random stacked vector, zero off the owned slots."""
     x = np.random.default_rng(seed).normal(size=(sp_.n_shards, sp_.n_loc1, 1))
     return x * sp_._owned_mask.numpy()[:, :, None]
+
+
+def _on_entries(sp_, v) -> bool:
+    """Each group's part of a placed stacked tensor lies on its entry's device."""
+    parts = v.parts if len(sp_._groups) > 1 else [v]
+    return len(parts) == len(sp_._groups) and all(
+        t.device == g.device and t.shape[0] == g.n for t, g in zip(parts, sp_._groups)
+    )
 
 
 def _off_owned_zero(sp_, v) -> bool:
@@ -112,9 +140,10 @@ def _zero_solutions(sj, sp_):
     sp_.set_solution_vector(sp_.x * 0)
 
 
-@pytest.mark.parametrize("n_shards", [1, 2, 4])
-def test_ownership_and_halo_plan_match_reference(n_shards):
-    _, sj, sp_ = pair(n_shards)
+@pytest.mark.parametrize("n_shards,placed", SHARDS, ids=_ids(SHARDS))
+def test_ownership_and_halo_plan_match_reference(n_shards, placed):
+    _, sj, sp_ = pair(n_shards, placed=placed)
+    assert len(sp_._groups) == (n_shards if placed else 1)
     assert sp_.n_loc1 == sj.n_loc1 and sp_._max_send == sj._max_send
     for a, b in zip(sp_._owned + sp_._ghost, sj._owned + sj._ghost, strict=True):
         np.testing.assert_array_equal(a, b)
@@ -128,13 +157,14 @@ def test_ownership_and_halo_plan_match_reference(n_shards):
     np.testing.assert_array_equal(sp_._dir_slot, sj._dir_slot)
     for name in ("_owned_mask", "_free_local", "_dir_local"):
         np.testing.assert_array_equal(getattr(sp_, name).numpy(), np.asarray(getattr(sj, name)))
+        assert _on_entries(sp_, getattr(sp_, name))
 
 
-@pytest.mark.parametrize("n_shards", [1, 2, 4])
-def test_apply_rhs_diagonal_match_reference(n_shards):
+@pytest.mark.parametrize("n_shards,placed", SHARDS, ids=_ids(SHARDS))
+def test_apply_rhs_diagonal_match_reference(n_shards, placed):
     """The stacked apply, rhs, diagonal and effective rhs within 1e-11; the
     apply and the effective rhs are zero off the owned slots."""
-    _, sj, sp_ = pair(n_shards)
+    _, sj, sp_ = pair(n_shards, placed=placed)
     x = _stacked_x(sp_, n_shards)
     fj, cj = sj.operator_parts()
     fp, cp = sp_.operator_parts()
@@ -145,20 +175,21 @@ def test_apply_rhs_diagonal_match_reference(n_shards):
     b = sp_.effective_rhs()
     assert _rel(b, sj.effective_rhs()) < REL
     assert _off_owned_zero(sp_, y) and _off_owned_zero(sp_, b)
+    assert _on_entries(sp_, y) and _on_entries(sp_, b) and _on_entries(sp_, sp_.diagonal())
 
 
-@pytest.mark.parametrize("n_shards", [2, 4])
-def test_cg_jacobi_matches_reference(n_shards):
+@pytest.mark.parametrize("n_shards,placed", SHARDS_24, ids=_ids(SHARDS_24))
+def test_cg_jacobi_matches_reference(n_shards, placed):
     """CG + Jacobi from zero: iterations within 1, the stacked solution within
     1e-10 with its ghosts and dump at zero, and the nodal values through
     ``update_solution`` (T = x recovered)."""
-    mesh, sj, sp_ = pair(n_shards)
+    mesh, sj, sp_ = pair(n_shards, placed=placed)
     _zero_solutions(sj, sp_)
     rj = sj.solve(lt.CG(lt.IterSolverOpts(**CG_OPTS), precond=lt.Jacobi()))
     rp = sp_.solve(lp.CG(lp.IterSolverOpts(**CG_OPTS), precond=lp.Jacobi()))
     assert rp.converged and abs(rp.num_iters - rj.num_iters) <= 1, (rp.num_iters, rj.num_iters)
     assert np.abs(sp_.x.numpy() - np.asarray(sj.x)).max() < 1e-10
-    assert _off_owned_zero(sp_, sp_.x)
+    assert _off_owned_zero(sp_, sp_.x) and _on_entries(sp_, sp_.x)
     mj, mp = lt.SolutionManager(mesh, 3), lp.SolutionManager(sp_.mesh, 3, device="cpu")
     sj.update_solution([0, 1, 2], mj, [0, 1, 2])
     sp_.update_solution([0, 1, 2], mp, [0, 1, 2])
@@ -167,12 +198,13 @@ def test_cg_jacobi_matches_reference(n_shards):
     np.testing.assert_allclose(sp_._solution_global(), sj._solution_global(), rtol=0, atol=1e-10)
 
 
-def test_gmres_matches_reference():
+@pytest.mark.parametrize("placed", [False, True], ids=["stacked", "placed"])
+def test_gmres_matches_reference(placed):
     """GMRES(10) + Jacobi on 4 shards (``tests/test_distributed.py:test_distributed_gmres``
     runs GMRES(60), whose single long cycle ends on a rounding-sensitive
     early-exit estimate: there the reference's own 1-, 2- and 4-shard counts
     lie 7-9 iterations above its single-device count, 79)."""
-    _, sj, sp_ = pair(4)
+    _, sj, sp_ = pair(4, placed=placed)
     _zero_solutions(sj, sp_)
     opts = dict(tol=1e-11, max_iters=4000, restart=10)
     rj = sj.solve(lt.Gmres(lt.IterSolverOpts(**opts), precond=lt.Jacobi()))
@@ -186,13 +218,14 @@ def _csr(t):
     return sp.csr_matrix((np.asarray(d, np.float64), np.asarray(i), np.asarray(p)), shape=(n, n))
 
 
-@pytest.mark.parametrize("n_shards", [2, 4])
-def test_assembled_matches_reference(n_shards):
+@pytest.mark.parametrize("n_shards,placed", SHARDS_24, ids=_ids(SHARDS_24))
+def test_assembled_matches_reference(n_shards, placed):
     """GLOBAL_ASSEMBLY: the gathered CSR has the reference's pattern exactly
     and its values (and the single system's) within 1e-12; the shard blocks'
     patterns are the reference's; the apply, rhs and diagonal within 1e-11;
-    CG + Jacobi within 1 iteration."""
-    mesh, sj, sp_ = pair(n_shards, assembled=True)
+    CG + Jacobi within 1 iteration; placed, one CSR per group on its device."""
+    mesh, sj, sp_ = pair(n_shards, assembled=True, placed=placed)
+    assert [(c.device, c.shape[0]) for c in sp_._csr] == [(g.device, g.n * sp_.n_loc1) for g in sp_._groups]
     Ap, Aj = _csr(sp_.gathered_csr()), _csr(sj.gathered_csr())
     np.testing.assert_array_equal(Ap.indptr, Aj.indptr)
     np.testing.assert_array_equal(Ap.indices, Aj.indices)
@@ -235,13 +268,16 @@ def build_single(mesh):
     return s
 
 
-@pytest.mark.parametrize("solver", ["cg", "klu2", "lapack"])
-def test_condensed_solves_match_reference(solver):
+@pytest.mark.parametrize(
+    "solver,placed", [("cg", False), ("klu2", False), ("lapack", False), ("cg", True), ("klu2", True)],
+    ids=["cg", "klu2", "lapack", "cg-placed", "klu2-placed"],
+)
+def test_condensed_solves_match_reference(solver, placed):
     """ELEMENT_BOUNDARY condensation on 2 shards (order 3): the condensed
     gathered CSR, then CG + Jacobi (within 1 iteration) or the host direct
     solvers; the nodal values with the recovered interiors within 1e-10 of
     the reference's (T = x)."""
-    mesh, sj, sp_ = pair(2, assembled=True, cond=True)
+    mesh, sj, sp_ = pair(2, assembled=True, cond=True, placed=placed)
     assert sp_.n_dofs == sj.n_dofs == mesh.n_nodes * 3 - 9 * 4 * 3
     Ap, Aj = _csr(sp_.gathered_csr()), _csr(sj.gathered_csr())
     np.testing.assert_array_equal(Ap.indices, Aj.indices)
@@ -276,29 +312,42 @@ def test_condensed_matrix_free_rejected():
 
 def test_default_device_and_shard_placement():
     """CUDA unless the caller names a device, with no silent CPU fallback;
-    shards on several devices are refused."""
+    ``devices`` places contiguous blocks of shards, one group an entry (a
+    repeated entry its own group, uneven blocks, entries past ``n_shards``
+    unused, ``n_shards`` by default one an entry), each shard's tensors on its
+    entry's device and ``describe`` naming them; a ``device`` that is not the
+    first entry is refused."""
     mesh = lp.generate_mesh(lp.make_square_mesh(np.linspace(0, 1, 3)), order=1)
     problem = lp.ProblemDefinition(3, [0])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             lp.make_distributed_system(mesh, problem, n_shards=2)
-    with pytest.raises(NotImplementedError, match="one device"):
-        lp.make_distributed_system(mesh, problem, n_shards=2, devices=["cpu", "meta"])
+    for n_shards, devices, spans in [(3, ["cpu", "cpu"], [(0, 2), (2, 3)]), (2, ["cpu"] * 3, [(0, 1), (1, 2)]),
+                                     (None, ["cpu"] * 2, [(0, 1), (1, 2)])]:
+        s = lp.make_distributed_system(mesh, problem, n_shards=n_shards, devices=devices)
+        assert [(g.lo, g.hi) for g in s._groups] == spans and s.n_shards == spans[-1][1]
+        for v in (s.x, s.rhs, s._owned_mask, s.dirichlet_extension()):
+            assert _on_entries(s, v)
+        assert "shards 0" in s.describe(per_shard=True).split("\n")[0] and " on cpu" in s.describe()
+    with pytest.raises(ValueError, match="first entry"):
+        lp.make_distributed_system(mesh, problem, n_shards=2, devices=["cpu", "cpu"], device="meta")
 
 
-def test_describe_per_shard_matches_reference():
+@pytest.mark.parametrize("placed", [False, True], ids=["stacked", "placed"])
+def test_describe_per_shard_matches_reference(placed):
     """The per-shard table's elements, owned and ghost dofs and halo widths
     (the local nnz differs by the reference's padding entry on the dump slot)."""
-    _, sj, sp_ = pair(4, assembled=True)
+    _, sj, sp_ = pair(4, assembled=True, placed=placed)
     tp, tj = sp_.describe(per_shard=True).split("\n"), sj.describe(per_shard=True).split("\n")
     assert tp[0].startswith("DistributedSystem: ") and len(tp) == len(tj)
     assert [r.split()[:6] for r in tp[1:]] == [r.split()[:6] for r in tj[1:]]
 
 
-def test_sharded_vtk_export_matches_reference(tmp_path):
+@pytest.mark.parametrize("placed", [False, True], ids=["stacked", "placed"])
+def test_sharded_vtk_export_matches_reference(tmp_path, placed):
     """``export_solution_sharded(partition=system)``: one piece per shard,
     the same files as the reference writes."""
-    mesh, sj, sp_ = pair(4)
+    mesh, sj, sp_ = pair(4, placed=placed)
     mj, mp = lt.SolutionManager(mesh, 3), lp.SolutionManager(sp_.mesh, 3, device="cpu")
     sj.update_solution([0, 1, 2], mj, [0, 1, 2])
     sp_.update_solution([0, 1, 2], mp, [0, 1, 2])
@@ -318,11 +367,13 @@ def test_sharded_vtk_export_matches_reference(tmp_path):
     assert pp.endswith("out.pvtu") and pj.endswith("out.pvtu")
 
 
-def test_checkpoint_reshards_on_load(tmp_path):
+@pytest.mark.parametrize("placed", [False, True], ids=["stacked", "placed"])
+def test_checkpoint_reshards_on_load(tmp_path, placed):
     """A checkpoint of a 4-shard solution loads into a 2-shard system of the
-    restored mesh: its global solution is the saved one, exactly."""
-    _, _, s4 = pair(4)
-    _zero_solutions(*pair(4)[1:])
+    restored mesh: its global solution is the saved one, exactly (placed:
+    saved from 4 groups, loaded into 2)."""
+    _, _, s4 = pair(4, placed=placed)
+    _zero_solutions(*pair(4, placed=placed)[1:])
     s4.solve(lp.CG(lp.IterSolverOpts(tol=1e-10, max_iters=3000), precond=lp.Jacobi()))
     man = lp.SolutionManager(s4.mesh, 3, device="cpu")
     s4.update_solution([0, 1, 2], man, [0, 1, 2])
@@ -332,14 +383,45 @@ def test_checkpoint_reshards_on_load(tmp_path):
     problem = lp.ProblemDefinition(3, [0])
     bcs = lp.BCDefinition(problem)
     bcs.define_dirichlet([3, 4], [0])
-    s2 = lp.make_distributed_system(mesh2, problem, bcs, n_shards=2, dtype=torch.float64, device="cpu")
+    s2 = lp.make_distributed_system(
+        mesh2, problem, bcs, n_shards=2, dtype=torch.float64, device="cpu", devices=["cpu"] * 2 if placed else None
+    )
     nd = s2.dofmap.node_dof
     xg = np.zeros((s2.n_dofs, 1))
     has = nd >= 0
     xg[nd[has], 0] = man2.values.numpy()[np.nonzero(has)[0], np.nonzero(has)[1]]
     s2._set_solution_global(xg)
     np.testing.assert_array_equal(s2._solution_global(), s4._solution_global())
-    assert _off_owned_zero(s2, s2.x)
+    assert _off_owned_zero(s2, s2.x) and _on_entries(s2, s2.x)
+
+
+def _f64_rel(a, b) -> float:
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("assembled", [False, True], ids=["matrix_free", "assembled"])
+def test_placed_results_equal_one_group(assembled):
+    """Placed on four groups, the f64 apply, effective rhs, diagonal and CG +
+    Jacobi (the dots now sum per group) equal those of one group to 1e-13
+    relative, with the same iteration count; assembled, CG + SGS and
+    BlockJacobi too (their per-shard data built group by group)."""
+    _, _, s1 = pair(4, assembled=assembled)
+    _, _, s4 = pair(4, assembled=assembled, placed=True)
+    x = torch.as_tensor(_stacked_x(s1, 5))
+    f1, c1 = s1.operator_parts()
+    f4, c4 = s4.operator_parts()
+    assert _f64_rel(f4(x, *c4), f1(x, *c1)) <= 1e-13
+    assert _f64_rel(s4.effective_rhs(), s1.effective_rhs()) <= 1e-13
+    assert _f64_rel(s4.diagonal(), s1.diagonal()) <= 1e-13
+    preconds = [lp.Jacobi()] + ([lp.SGS(), lp.BlockJacobi()] if assembled else [])
+    for pc in preconds:
+        _zero_solutions(*pair(4, assembled=assembled)[1:])
+        _zero_solutions(*pair(4, assembled=assembled, placed=True)[1:])
+        r1 = s1.solve(lp.CG(lp.IterSolverOpts(**CG_OPTS), precond=pc))
+        r4 = s4.solve(lp.CG(lp.IterSolverOpts(**CG_OPTS), precond=pc))
+        assert r4.converged and r4.num_iters == r1.num_iters, (pc, r4.num_iters, r1.num_iters)
+        assert _f64_rel(s4.x, s1.x) <= 1e-13, pc
 
 
 # public names of the JAX package that ``ROADMAP.md`` records as not
@@ -440,3 +522,24 @@ def test_public_names_match_reference():
             gone = _methods(ref, mod, cls) - _methods(port, mod, cls)
             missing += [f"{mod}:{cls}.{m}" for m in sorted(gone)]
     assert missing == []
+
+
+def test_linear_solve_placed_equals_one_group():
+    """The differentiable solve (``linear_solve``) of a distributed system's
+    operator: placed on four groups, the solution and the gradient of a
+    weighted sum of it with respect to the rhs equal one group's to 1e-13."""
+    _, _, s1 = pair(4)
+    _, _, s4 = pair(4, placed=True)
+    w = torch.as_tensor(_stacked_x(s1, 9))
+    b0 = np.asarray(s1.effective_rhs())
+    got = []
+    for s in (s1, s4):
+        fn, cs = s.operator_parts()
+        b = torch.as_tensor(b0).requires_grad_()
+        u = lp.linear_solve(fn, cs, s._place(b), tol=1e-12, max_iters=3000)
+        (w * u).sum().backward()
+        got.append((np.asarray(u.detach()), b.grad.numpy()))
+    (u1, g1), (u4, g4) = got
+    assert _f64_rel(u4, u1) <= 1e-13 and _f64_rel(g4, g1) <= 1e-13
+    fn, cs = s1.operator_parts()  # the gradient is the adjoint solve K^T g = w (K symmetric)
+    assert _rel(fn(torch.as_tensor(g1), *cs), w) < 1e-9

@@ -11,7 +11,9 @@ V-cycle from the same power-iteration start vector (the reference's
 ``(n_shards, n_loc1, 1)``) within 1e-10; CG + PMultigrid within one iteration
 of the reference's, the solution within 1e-10, and within the reference's
 bar of the single-device solve; the Navier-Stokes apply and effective rhs
-within 1e-11.
+within 1e-11.  The diffusion case also runs on the port's shards placed with
+``devices=["cpu"] * P`` (one placement group a shard), against the same
+reference results.
 """
 
 import jax
@@ -27,7 +29,7 @@ from l3ster_tpu.solve.krylov import _precond_parts as parts_j
 from l3ster_tpu_torch.solve import lowordermg as mgp
 from l3ster_tpu_torch.solve.krylov import _precond_parts as parts_p
 from tests.test_pmg import _adiabatic_bc, _cyl_mesh, _diffusion_kernel_2d
-from tests.test_torch_distributed import _off_owned_zero, jitted_shard_maps  # noqa: F401  (module fixture)
+from tests.test_torch_distributed import SHARDS_24, _ids, _off_owned_zero, jitted_shard_maps  # noqa: F401
 from tests.test_torch_fields import assemble, flow_fields, managers
 from tests.test_torch_system import _port_mesh, _rel, fast_reference_compiles, jax_run  # noqa: F401
 
@@ -58,22 +60,25 @@ def meshes():
     return mesh, _port_mesh(mesh)
 
 
-def _make(pkg, mesh, n_shards, problem, bcs):
+def _make(pkg, mesh, n_shards, problem, bcs, placed=False):
     params = pkg.AlgebraicSystemParams(eval_strategy=pkg.OperatorEvaluationStrategy.MATRIX_FREE)
     if pkg is lt:
         return make_j(mesh, problem, bcs, params, n_shards=n_shards)
     if n_shards == 0:
         return lp.make_algebraic_system(mesh, problem, bcs, params, dtype=torch.float64, device="cpu")
-    return lp.make_distributed_system(mesh, problem, bcs, params, n_shards=n_shards, dtype=torch.float64, device="cpu")
+    return lp.make_distributed_system(
+        mesh, problem, bcs, params, n_shards=n_shards, dtype=torch.float64, device="cpu",
+        devices=["cpu"] * n_shards if placed else None,
+    )
 
 
-def diffusion(pkg, mesh, n_shards):
+def diffusion(pkg, mesh, n_shards, placed=False):
     """``tests/test_pmg.py:_build_diffusion`` on ``n_shards`` shards (0: the
-    port's single system)."""
+    port's single system), ``placed`` on as many "cpu" entries."""
     problem = pkg.ProblemDefinition(3, [DOMAIN])
     bcs = pkg.BCDefinition(problem)
     bcs.define_dirichlet([INLET, OUTLET, CYLINDER], [0])
-    system = _make(pkg, mesh, n_shards, problem, bcs)
+    system = _make(pkg, mesh, n_shards, problem, bcs, placed)
     kd = pkg.wrap_domain_equation_kernel(_diffusion_kernel_2d, pkg.KernelParams(dimension=2, n_equations=4, n_unknowns=3))
     kn = pkg.wrap_boundary_equation_kernel(_adiabatic_bc, pkg.KernelParams(dimension=2, n_equations=1, n_unknowns=3))
     kdir = pkg.wrap_boundary_residual_kernel(lambda i, o: o.__setitem__(0, i.point.x), pkg.KernelParams(dimension=2, n_equations=1))
@@ -90,24 +95,39 @@ PMG = dict(smooth_degree=2)
 CG_OPTS = dict(tol=1e-10, max_iters=4000)
 
 
-@pytest.mark.parametrize("n_shards", [2, 4])
-def test_pmg_diffusion_matches_reference(meshes, n_shards):
+_REF: dict = {}
+
+
+def _reference_diffusion(mesh, pmesh, n_shards):
+    """The reference's V-cycle apply and CG + PMultigrid solve, and the port's
+    single-device solve, once per shard count: (r, z, iterations, x, single
+    iterations, single x)."""
+    if n_shards not in _REF:
+        sj = diffusion(lt, mesh, n_shards)
+        fj, cj = parts_j(lt.PMultigrid(**PMG), sj, "dof")
+        r = np.array(sj.effective_rhs())
+        z = np.asarray(jax_run(fj, r, *cj))
+        rj = sj.solve(lt.CG(lt.IterSolverOpts(**CG_OPTS), precond=lt.PMultigrid(**PMG)))
+        s1 = diffusion(lp, pmesh, 0)
+        r1 = s1.solve(lp.CG(lp.IterSolverOpts(**CG_OPTS), precond=lp.PMultigrid(**PMG)))
+        _REF[n_shards] = (r, z, rj.num_iters, np.asarray(sj.x), r1.num_iters, s1.x.numpy())
+    return _REF[n_shards]
+
+
+@pytest.mark.parametrize("n_shards,placed", SHARDS_24, ids=_ids(SHARDS_24))
+def test_pmg_diffusion_matches_reference(meshes, n_shards, placed):
     mesh, pmesh = meshes
-    sj, sp_ = diffusion(lt, mesh, n_shards), diffusion(lp, pmesh, n_shards)
-    fj, cj = parts_j(lt.PMultigrid(**PMG), sj, "dof")
+    r, zj, it_j, xj, it_1, x1 = _reference_diffusion(mesh, pmesh, n_shards)
+    sp_ = diffusion(lp, pmesh, n_shards, placed)
     fp, cp = parts_p(lp.PMultigrid(**PMG), sp_, "dof")
-    r = np.array(sj.effective_rhs())
     z = fp(torch.as_tensor(r), *cp)
-    assert _rel(z, jax_run(fj, r, *cj)) < 1e-10
+    assert _rel(z, zj) < 1e-10
     assert _off_owned_zero(sp_, z)
-    rj = sj.solve(lt.CG(lt.IterSolverOpts(**CG_OPTS), precond=lt.PMultigrid(**PMG)))
     rp = sp_.solve(lp.CG(lp.IterSolverOpts(**CG_OPTS), precond=lp.PMultigrid(**PMG)))
-    assert rp.converged and abs(rp.num_iters - rj.num_iters) <= 1, (rp.num_iters, rj.num_iters)
-    assert np.abs(sp_.x.numpy() - np.asarray(sj.x)).max() < 1e-10
-    s1 = diffusion(lp, pmesh, 0)
-    r1 = s1.solve(lp.CG(lp.IterSolverOpts(**CG_OPTS), precond=lp.PMultigrid(**PMG)))
-    assert abs(rp.num_iters - r1.num_iters) <= max(3, int(0.05 * r1.num_iters)), (rp.num_iters, r1.num_iters)
-    assert np.abs(sp_._solution_global() - s1.x.numpy()).max() < 1e-7
+    assert rp.converged and abs(rp.num_iters - it_j) <= 1, (rp.num_iters, it_j)
+    assert np.abs(sp_.x.numpy() - xj).max() < 1e-10
+    assert abs(rp.num_iters - it_1) <= max(3, int(0.05 * it_1)), (rp.num_iters, it_1)
+    assert np.abs(sp_._solution_global() - x1).max() < 1e-7
     X = sp_._solution_global()[:, 0].reshape(-1, 3)
     assert np.abs(X[:, 0] - mesh.node_coords[:, 0]).max() < 1e-7
 

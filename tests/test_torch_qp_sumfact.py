@@ -174,9 +174,11 @@ def test_coefficient_tables_rebuild_A(dim):
 def test_qp_kernel_division_and_launch_shape():
     """The per-QP kernel's host side: the multiply-shift division by Q that
     locates a QP's element (exact for every index below 2^31), and the ring of
-    256-QP tiles (the kernel's tile): RING tiles where they fit in shared
-    memory, else two, else one, else a raise."""
-    from l3ster_tpu_torch.ops._cuda import SMEM_LIMIT
+    256-QP tiles (the kernel's full tile): RING tiles where they fit in shared
+    memory, else two, else one; where one full tile does not fit, the largest
+    smaller tile (128, 64, 32 QPs) that does.  Every A within the constant
+    tables' limits fits; past them, a raise."""
+    from l3ster_tpu_torch.ops._cuda import CA_LIMITS, SMEM_LIMIT
     from l3ster_tpu_torch.ops.qp import RING, fast_div, launch_shape
 
     rng = np.random.default_rng(0)
@@ -189,5 +191,16 @@ def test_qp_kernel_division_and_launch_shape():
     sh = launch_shape(3, 4, 7, 15, 4, 256)  # the bench's A in f32
     assert (sh["rows"], sh["nbuf"], sh["tile"]) == (26, RING, 256) and sh["smem"] <= SMEM_LIMIT
     assert launch_shape(3, 8, 15, 240, 8, 256)["nbuf"] == 2 and launch_shape(3, 12, 20, 488, 8, 256)["nbuf"] == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        launch_shape(3, 16, 28, 900, 8, 256)
+    # the widest multi-RHS stacking in f64 (c = 16, n_eq = 28): 256 QPs fit up to
+    # 685 nonzeros, 128 QPs beyond
+    assert launch_shape(3, 16, 28, 685, 8, 256)["tile"] == 256
+    sh = launch_shape(3, 16, 28, 900, 8, 256)
+    assert (sh["tile"], sh["nbuf"]) == (128, 2) and sh["smem"] <= SMEM_LIMIT
+    assert (launch_shape(3, 16, 28, 2048, 8, 256)["tile"], launch_shape(3, 64, 64, 2048, 8, 256)["tile"]) == (128, 32)
+    max_ent, max_eq, max_slot = CA_LIMITS
+    for dim in (2, 3):
+        for args in ((max_slot // (dim + 1), max_eq, max_ent), (1, 1, 1)):
+            assert launch_shape(dim, *args, 8, 256)["smem"] <= SMEM_LIMIT
+    for args in ((3, 16, 28, max_ent + 1), (3, 16, max_eq + 1, 900), (3, max_slot // 4 + 1, 28, 900)):
+        with pytest.raises(ValueError, match="constant tables"):
+            launch_shape(*args, 8, 256)

@@ -10,7 +10,8 @@ reference's, with its ghost and dump slots zero, and CG (GMRES for ILUT)
 within one iteration of the reference's, the solution within 1e-10.
 BlockJacobi, which the reference does not take on a distributed system,
 is held to the port's single-device BlockJacobi: the same iterations and
-solution.
+solution.  Each case runs on the port's shards stacked in one group and
+placed with ``devices=["cpu"] * P`` (one placement group a shard).
 """
 
 import jax
@@ -23,6 +24,8 @@ import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
 from l3ster_tpu_torch.solve import precond as pp
 from tests.test_torch_distributed import (  # noqa: F401  (module fixtures)
+    SHARDS_24,
+    _ids,
     _off_owned_zero,
     _stacked_x,
     _zero_solutions,
@@ -68,10 +71,10 @@ def _solver(pkg, kind, precond):
     return pkg.Gmres(pkg.IterSolverOpts(tol=1e-12, max_iters=600, restart=40), precond=precond)
 
 
-@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("n_shards,placed", SHARDS_24, ids=_ids(SHARDS_24))
 @pytest.mark.parametrize("name,make,kind", PRECONDS, ids=[p[0] for p in PRECONDS])
-def test_distributed_precond_matches_reference(n_shards, name, make, kind):
-    _, sj, sp_ = pair(n_shards, assembled=True)
+def test_distributed_precond_matches_reference(n_shards, placed, name, make, kind):
+    _, sj, sp_ = pair(n_shards, assembled=True, placed=placed)
     r = _stacked_x(sp_, 11)
     fj, cj = make(lt).setup_parts(sj)
     fp, cp = make(lp).setup_parts(sp_)
@@ -85,11 +88,11 @@ def test_distributed_precond_matches_reference(n_shards, name, make, kind):
     assert np.abs(sp_.x.numpy() - np.asarray(sj.x)).max() < 1e-10
 
 
-@pytest.mark.parametrize("n_shards", [2, 4])
-def test_blockjacobi_matches_single_device(n_shards):
+@pytest.mark.parametrize("n_shards,placed", SHARDS_24, ids=_ids(SHARDS_24))
+def test_blockjacobi_matches_single_device(n_shards, placed):
     """Each node's block lives on the shard owning the node: CG + BlockJacobi
     takes the single-device iterations and solution."""
-    mesh, _, sp_ = pair(n_shards, assembled=True)
+    mesh, _, sp_ = pair(n_shards, assembled=True, placed=placed)
     single = build_single(mesh)
     kdir = lp.wrap_boundary_residual_kernel(
         lambda i, o: o.__setitem__(0, i.point.x), lp.KernelParams(dimension=2, n_equations=1)
