@@ -18,7 +18,8 @@ import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
 from l3ster_tpu.solve.adjoint import linear_solve as linear_solve_j
 from l3ster_tpu_torch.solve.adjoint import linear_solve as linear_solve_p
-from tests.test_torch_system import _port_mesh, fast_reference_compiles  # noqa: F401
+from tests.test_torch_system import _port_mesh
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 TOL = 1e-10
 

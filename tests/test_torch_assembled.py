@@ -15,14 +15,8 @@ import torch
 import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
 from bench import _adiabatic_3d
-from tests.test_torch_system import (  # noqa: F401  (module fixture)
-    _diffusion_src,
-    _port_mesh,
-    _rel,
-    fast_reference_compiles,
-    jax_run,
-    xla_optimizations,
-)
+from tests.test_torch_system import _diffusion_src, _port_mesh, _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit, xla_optimizations  # noqa: F401 (fixtures)
 
 TOL = 1e-12  # K, F, data, diagonal and eliminated CSR, relative to max |reference|
 

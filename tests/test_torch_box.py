@@ -29,8 +29,8 @@ from l3ster_tpu.parallel.box import box_parallelize as box_j
 from l3ster_tpu.solve.krylov import _precond_parts as parts_j
 from l3ster_tpu_torch.solve import lowordermg as mgp
 from l3ster_tpu_torch.solve.krylov import _precond_parts as parts_p
-from tests.test_torch_distributed import jitted_shard_maps  # noqa: F401  (module fixture)
-from tests.test_torch_system import _build, _rel, fast_reference_compiles, jax_run  # noqa: F401
+from tests.test_torch_system import _build, _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, jitted_shard_maps, per_test_limit  # noqa: F401 (fixtures)
 
 REL = 1e-11
 CASES = [(2, None, False), (4, None, False), (4, (2, 2), False), (8, (2, 4), False), (2, None, True), (4, (2, 2), True)]

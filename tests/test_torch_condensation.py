@@ -20,12 +20,8 @@ import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
 from bench import _adiabatic_3d
 from tests.test_diffusion_2d import adiabatic_bc, diffusion_kernel_2d
-from tests.test_torch_system import (  # noqa: F401  (module fixture)
-    _diffusion_src,
-    _port_mesh,
-    _rel,
-    fast_reference_compiles,
-)
+from tests.test_torch_system import _diffusion_src, _port_mesh, _rel
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 TOL = 1e-11  # data, rhs, eliminated CSR after the Schur step, relative to max |reference|
 X_TOL = 1e-10  # solutions and recovered interiors, relative to max |reference|

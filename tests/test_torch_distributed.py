@@ -30,25 +30,11 @@ import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
 from l3ster_tpu.parallel.distributed import make_distributed_system as make_j
 from tests.test_distributed import _adiabatic, _diffusion
-from tests.test_torch_system import _port_mesh, _rel, fast_reference_compiles, jax_run  # noqa: F401
+from tests.test_torch_system import _port_mesh, _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, jitted_shard_maps, per_test_limit  # noqa: F401 (fixtures)
 
 REL = 1e-11
 CG_OPTS = dict(tol=1e-12, max_iters=3000)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def jitted_shard_maps():
-    """The reference's ``shard_map`` programs run jitted: its ``end_assembly``
-    calls one eagerly, which dispatches (and compiles) every primitive on its
-    own, some 30 s per system.  The other port modules that drive the
-    reference's distributed systems import this fixture."""
-    import jax
-
-    orig = jax.shard_map
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jax, "shard_map", lambda f, *a, **k: jax.jit(orig(f, *a, **k)))
-    yield
-    mp.undo()
 
 
 def _mesh(order=2, n=4):

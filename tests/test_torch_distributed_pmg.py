@@ -29,9 +29,10 @@ from l3ster_tpu.solve.krylov import _precond_parts as parts_j
 from l3ster_tpu_torch.solve import lowordermg as mgp
 from l3ster_tpu_torch.solve.krylov import _precond_parts as parts_p
 from tests.test_pmg import _adiabatic_bc, _cyl_mesh, _diffusion_kernel_2d
-from tests.test_torch_distributed import SHARDS_24, _ids, _off_owned_zero, jitted_shard_maps  # noqa: F401
+from tests.test_torch_distributed import SHARDS_24, _ids, _off_owned_zero
 from tests.test_torch_fields import assemble, flow_fields, managers
-from tests.test_torch_system import _port_mesh, _rel, fast_reference_compiles, jax_run  # noqa: F401
+from tests.test_torch_system import _port_mesh, _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, jitted_shard_maps, per_test_limit  # noqa: F401 (fixtures)
 
 DOMAIN, BOTTOM, TOP, INLET, OUTLET, CYLINDER = 0, 1, 2, 3, 4, 5
 

@@ -27,12 +27,8 @@ from l3ster_tpu.models import kernels as kj
 from l3ster_tpu_torch.algsys import local as lpl
 from l3ster_tpu_torch.models import kernels as kp
 from tests.test_pmg import _cyl_mesh
-from tests.test_torch_system import (  # noqa: F401  (module fixture)
-    _port_mesh,
-    _rel,
-    fast_reference_compiles,
-    jax_run,
-)
+from tests.test_torch_system import _port_mesh, _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 DOMAIN, BOTTOM, TOP, INLET, OUTLET, CYLINDER = 0, 1, 2, 3, 4, 5
 NU, DT = 1.0 / 50.0, 0.2

@@ -14,7 +14,8 @@ import torch
 
 import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
-from tests.test_torch_system import _port_mesh, _rel, fast_reference_compiles, jax_run  # noqa: F401 (a fixture)
+from tests.test_torch_system import _port_mesh, _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 REL = 1e-12
 

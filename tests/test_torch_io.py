@@ -26,7 +26,8 @@ from l3ster_tpu.parallel.partition import partition_mesh_elements as partition_j
 from l3ster_tpu_torch.parallel.partition import partition_mesh_elements as partition_p
 from tests.test_io import GMSH_V2, GMSH_V4, _write_gmsh_v2_binary, _write_gmsh_v4_binary
 from tests.test_multidomain import DOM_R
-from tests.test_torch_system import _port_mesh, fast_reference_compiles  # noqa: F401
+from tests.test_torch_system import _port_mesh
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 
 def _same_mesh(mp, mj):

@@ -18,6 +18,7 @@ import l3ster_tpu_torch as lp
 from bench import _diffusion_3d
 from l3ster_tpu.algsys.system import _constant_kernel_operators as jax_const
 from l3ster_tpu_torch.algsys.system import _constant_kernel_operators as port_const
+from tests.torch_reference_fixtures import per_test_limit  # noqa: F401 (fixtures)
 
 
 def _both(fn, n_eq=7):

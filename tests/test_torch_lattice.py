@@ -12,7 +12,8 @@ import torch
 
 from l3ster_tpu.ops import lattice_sumfact as jls
 from l3ster_tpu_torch.ops import lattice_sumfact as pls
-from tests.test_torch_system import fast_reference_compiles, jax_run  # noqa: F401 (a fixture)
+from tests.test_torch_system import jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 REL = 1e-11  # max abs error over max |reference|
 

@@ -29,14 +29,9 @@ import l3ster_tpu_torch as lp
 from bench import _adiabatic_3d, _diffusion_3d
 from l3ster_tpu_torch.ops import lattice_sumfact as lsp
 from l3ster_tpu_torch.ops.qp import qp_algebra_const_lattice
-from tests.test_torch_system import (  # noqa: F401 (fast_reference_compiles is a fixture)
-    _jax_apply,
-    _port_mesh,
-    _rel,
-    fast_reference_compiles,
-    jax_run,
-)
+from tests.test_torch_system import _jax_apply, _port_mesh, _rel, jax_run
 from tests.test_torch_var import _var_diffusion
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 REL = 1e-11
 

@@ -22,7 +22,8 @@ import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
 from l3ster_tpu.ops import lattice as lj
 from l3ster_tpu_torch.ops import lattice as lpt
-from tests.test_torch_system import _port_mesh, _rel, fast_reference_compiles, jax_run  # noqa: F401
+from tests.test_torch_system import _port_mesh, _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 
 def _jit(fn, x, *static):

@@ -22,12 +22,8 @@ import l3ster_tpu_torch as lp
 from bench import _adiabatic_3d, _diffusion_3d
 from l3ster_tpu.solve import lowordermg as mgj
 from l3ster_tpu_torch.solve import lowordermg as mgp
-from tests.test_torch_system import (  # noqa: F401  (module fixture)
-    _port_mesh,
-    _rel,
-    fast_reference_compiles,
-    jax_run,
-)
+from tests.test_torch_system import _port_mesh, _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 
 def _diffusion2(inp, out):

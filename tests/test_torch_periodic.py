@@ -26,7 +26,8 @@ from l3ster_tpu.bcs.periodic import match_periodic_nodes as match_j
 from l3ster_tpu.dofs.dofmap import build_dof_map as build_dof_map_j
 from l3ster_tpu_torch.bcs.periodic import match_periodic_nodes as match_p
 from l3ster_tpu_torch.dofs.dofmap import build_dof_map as build_dof_map_p
-from tests.test_torch_system import _port_mesh, fast_reference_compiles  # noqa: F401
+from tests.test_torch_system import _port_mesh
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 DOMAIN, BOTTOM, TOP, LEFT, RIGHT = 0, 1, 2, 3, 4
 

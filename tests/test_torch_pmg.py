@@ -35,7 +35,8 @@ from tests.test_torch_fields import (  # noqa: F401  (module fixtures)
     meshes,
     mf_pair,
 )
-from tests.test_torch_system import _rel, fast_reference_compiles, jax_run  # noqa: F401
+from tests.test_torch_system import _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 # one configuration for every test (see the module doc); the refresh ratio
 # is :func:`test_lag_auto_refreshes_match_reference`'s

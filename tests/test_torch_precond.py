@@ -24,12 +24,8 @@ from l3ster_tpu_torch.solve import precond as pp
 from l3ster_tpu_torch.solve.tri import build_tri_solve, ilu0_factor, tri_schedule
 from tests.test_diffusion_2d import adiabatic_bc, diffusion_kernel_2d
 from tests.test_solvers import _nonsym_system, _spd_system
-from tests.test_torch_system import (  # noqa: F401  (module fixture)
-    _port_mesh,
-    _rel,
-    fast_reference_compiles,
-    xla_optimizations,
-)
+from tests.test_torch_system import _port_mesh, _rel
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit, xla_optimizations  # noqa: F401 (fixtures)
 
 APPLY_TOL = 1e-11  # a preconditioner's apply / a triangular solve, relative to max |reference|
 X_TOL = 1e-10  # solutions, relative to max |reference|

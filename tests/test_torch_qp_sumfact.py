@@ -16,8 +16,9 @@ import torch
 
 import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
-from tests.test_torch_system import fast_reference_compiles, jax_run  # noqa: F401 (a fixture)
+from tests.test_torch_system import jax_run
 from tests.test_torch_unstructured import CYL, _jax_apply, _rel, build
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 REL = 1e-11
 PALLAS_REL = 1e-4  # the fused sum-factorized kernels compute in float32

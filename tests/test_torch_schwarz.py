@@ -23,17 +23,17 @@ import torch
 import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
 from l3ster_tpu_torch.solve import precond as pp
-from tests.test_torch_distributed import (  # noqa: F401  (module fixtures)
+from tests.test_torch_distributed import (
     SHARDS_24,
     _ids,
     _off_owned_zero,
     _stacked_x,
     _zero_solutions,
     build_single,
-    jitted_shard_maps,
     pair,
 )
-from tests.test_torch_system import _rel, fast_reference_compiles  # noqa: F401
+from tests.test_torch_system import _rel
+from tests.torch_reference_fixtures import fast_reference_compiles, jitted_shard_maps, per_test_limit  # noqa: F401 (fixtures)
 
 APPLY_TOL = 1e-11
 

@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_system import _rel, fast_reference_compiles, jax_run  # noqa: F401 (a fixture)
+from tests.test_torch_system import _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 REL = 1e-11
 

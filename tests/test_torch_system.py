@@ -10,8 +10,6 @@ only on a TPU); the port takes the lattice path by default.  Tolerances are
 the reference's own oracle tolerances (test_lattice_sf.py).
 """
 
-from contextlib import contextmanager
-
 import numpy as np
 import pytest
 import torch
@@ -19,6 +17,7 @@ import torch
 import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
 from bench import _adiabatic_3d, _diffusion_3d
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit, xla_optimizations  # noqa: F401 (fixtures)
 
 REL = 1e-11  # operator apply / diagonal / effective rhs, relative to max |reference|
 
@@ -73,45 +72,6 @@ def _build(pkg, mesh, kernel, n_rhs=1):
 def _rel(got, ref) -> float:
     got, ref = np.asarray(got), np.asarray(ref)
     return float(np.abs(got - ref).max() / np.abs(ref).max())
-
-
-@contextmanager
-def xla_optimizations(enabled: bool):
-    """XLA compiles with (or without) most of its optimizations inside the block
-    (``jax_disable_most_optimizations``).  The arithmetic is the same either way
-    (no floating-point reassociation at any level); only compile and run times
-    change."""
-    import jax
-
-    prev = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", not enabled)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_disable_most_optimizations", prev)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def fast_reference_compiles():
-    """While a module that drives the reference runs, its programs compile
-    without most optimizations: the reference's eager setup compiles hundreds
-    of small programs, and at these sizes their compile time outweighs what
-    optimizing them saves.  Every program compiled meanwhile also goes to the
-    persistent JAX cache, not only those taking 0.5 s or more
-    (``tests/conftest.py``): without optimizations most compile in less, and
-    a run with a warm cache then compiles none of them (the compiled code is
-    the same either way).  The other port test modules that drive the
-    reference import this fixture (a long iterative solve re-enables the
-    optimizations with :func:`xla_optimizations`)."""
-    import jax
-
-    prev = jax.config.jax_persistent_cache_min_compile_time_secs
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    try:
-        with xla_optimizations(False):
-            yield
-    finally:
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", prev)
 
 
 def jax_run(fn, *args):

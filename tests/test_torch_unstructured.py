@@ -18,7 +18,8 @@ import torch
 import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
 from bench import _adiabatic_3d, _diffusion_3d
-from tests.test_torch_system import fast_reference_compiles, jax_run, xla_optimizations  # noqa: F401 (a fixture)
+from tests.test_torch_system import jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit, xla_optimizations  # noqa: F401 (fixtures)
 
 REL = 1e-11  # apply / diagonal / rhs, relative to max |reference| (the reference's oracles)
 

@@ -20,9 +20,8 @@ import torch
 
 import l3ster_tpu as lt
 import l3ster_tpu_torch as lp
-from tests.test_torch_system import (  # noqa: F401 (fast_reference_compiles is a fixture)
-    _build, _jax_apply, _mesh, _port_mesh, _rel, fast_reference_compiles, jax_run,
-)
+from tests.test_torch_system import _build, _jax_apply, _mesh, _port_mesh, _rel, jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 REL = 1e-11  # apply / diagonal / rhs / kernel outputs, relative to max |reference|
 

@@ -15,7 +15,8 @@ from l3ster_tpu.ops.pallas_zsweep2 import detect_diag_geometry as jax_detect
 from l3ster_tpu.ops.pallas_zsweep2 import fused_z_sweep_v2
 from l3ster_tpu_torch.ops.lattice_sumfact import banded_tables
 from l3ster_tpu_torch.ops.zsweep import detect_diag_geometry, fused_z_sweep, zsweep_layers, zsweep_tables
-from tests.test_torch_system import fast_reference_compiles, jax_run  # noqa: F401 (a fixture)
+from tests.test_torch_system import jax_run
+from tests.torch_reference_fixtures import fast_reference_compiles, per_test_limit  # noqa: F401 (fixtures)
 
 TOL = 1e-11  # max abs error over max |reference|, f64
 
