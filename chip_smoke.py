@@ -71,7 +71,9 @@ Phases, each reported on its own line:
    kernel at every shape of its paths (the dense layout of the cylinder and
    of the periodic cell, the lattice rows of the 2D cell and of the bench
    under ``L3STER_TPU_FUSED_Z=0``) with a torch copy of the same bytes beside
-   it; the redesigned kernels' lines carry their launch shape and resident
+   it, and the node-row gather and scatter-add on the cylinder's own row
+   indices in both layouts (the gather bit for bit, the scatter to
+   rounding), each with a copy of the same bytes; the redesigned kernels' lines carry their launch shape and resident
    blocks per SM, and the build phase each kernel's registers and spills;
 4. the lattice main path: the bench system's operator apply (f32) against
    the same system in f64 on the card, and a small system against the CPU
@@ -110,8 +112,10 @@ Phases, each reported on its own line:
    helper (``csrc/hostops.cpp``) must have built;
 8. the unstructured main path: the cylinder system's apply (f32, AUTO)
    against the same system in f64 on the card, a small cylinder system
-   against the CPU path, apply time, device-busy time and idle share; the
-   same system under SUM_FACT_PALLAS against the f64 apply, and its time;
+   against the CPU path, apply time, device-busy time and idle share, and
+   one channel-major row gather and scatter launch in its first apply; the
+   same system under SUM_FACT_PALLAS against the f64 apply, its time and
+   its node-major row launches;
 9. CG + Jacobi on the cylinder problem;
 10. ``karman``: 8 Picard solves (CG + a PMultigrid(lag="auto") of their
    own; each with its true residual beside CG's), 3 settling and 10 timed
@@ -167,7 +171,8 @@ on the bench's multigrid solve, its var mode on the bench-size phase 7 and
 then on the 12^3 multigrid solve (each row sums its two paths), the v1
 wrapper and the stage kernel on their
 phase 6 systems, the per-QP kernel on phases 8-9 (after its comparison
-systems ran), the fused one on the SUM_FACT_PALLAS system; the per-QP
+systems ran), the fused one on the SUM_FACT_PALLAS system, the row gather
+and scatter on phases 8-9 in both layouts (from the same point); the per-QP
 kernel's lattice layout on phase 11's and phase 12's systems with the
 kernel switched on (one record each), its dense layout also on phase 13's
 period (a record of its own); the z-sweep's const row also counts
@@ -423,13 +428,14 @@ def phase_environment() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    from l3ster_tpu_torch.ops import _cuda, qp, stages, sumfact_fused, zsweep
+    from l3ster_tpu_torch.ops import _cuda, qp, rows, stages, sumfact_fused, zsweep
 
-    names = ("zsweep", "qp_algebra", "sumfact_fused", "stage_matmul")
+    names = ("zsweep", "qp_algebra", "sumfact_fused", "stage_matmul", "row_gather")
     t0 = time.perf_counter()
     paths = _cuda.build(*names)  # one nvcc per source, all at once
     zsweep._library()
     stages._library()
+    rows._library()
     _cuda.load("qp_algebra", qp._declare)
     _cuda.load("sumfact_fused", sumfact_fused._declare)
     seconds = round(time.perf_counter() - t0, 3)
@@ -1137,7 +1143,7 @@ def _profile_apply(fn, x, n: int = 10) -> tuple[float, dict]:
 def phase_unstructured_main_path(lp) -> dict:
     import torch
 
-    from l3ster_tpu_torch.ops import qp, sumfact_fused
+    from l3ster_tpu_torch.ops import qp, rows, sumfact_fused
 
     t0 = time.perf_counter()
     mesh = _cylinder_mesh(lp, CYL_ORDER, small=False)
@@ -1160,15 +1166,19 @@ def phase_unstructured_main_path(lp) -> dict:
     torch.cuda.empty_cache()
 
     qp.launch_count = 0  # the unstructured main path (AUTO) starts here
+    rows.launch_count.clear()
     t0 = time.perf_counter()
     system = _build_cylinder(lp, mesh, "AUTO", torch.float32, "cuda")
     kinds = [d[0] for _, d in system._operators()[1]]
     fn = system.operator()
     x32 = x64.float()
+    rows_before = dict(rows.launch_count)
     y32 = fn(x32)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     qp_launches_first = qp.launch_count
+    row_launches_first = {f"{op}/{layout}": v - rows_before.get((op, layout), 0)
+                          for (op, layout), v in sorted(rows.launch_count.items())}
     apply_err = float((y32.double() - y64).abs().max() / y64.abs().max())
     finite = bool(torch.isfinite(y32).all())
     apply_ms = _cuda_ms(lambda: fn(x32))
@@ -1176,6 +1186,7 @@ def phase_unstructured_main_path(lp) -> dict:
     ok = (
         kinds == ["dense_const"] + ["direct"] * 4 and finite and apply_err < F32_APPLY_TOL
         and small_err < F64_APPLY_TOL and system.n_dofs == 4789376 and qp_launches_first > 0
+        and row_launches_first == {"gather/channel_major": 1, "scatter/channel_major": 1}
     )
     _say(
         "unstructured_apply", mesh="make_cylinder_in_channel_3d()", order=CYL_ORDER,
@@ -1184,12 +1195,13 @@ def phase_unstructured_main_path(lp) -> dict:
         tol=F32_APPLY_TOL, small_f64_rel_err_vs_cpu=small_err, small_tol=F64_APPLY_TOL,
         finite=finite, apply_ms=apply_ms, device_busy_ms=busy_ms,
         device_idle_share=1.0 - busy_ms / apply_ms, top_device_ms_per_apply=top,
-        qp_launches_first_apply=qp_launches_first, ok=ok,
+        qp_launches_first_apply=qp_launches_first, row_launches_first_apply=row_launches_first, ok=ok,
     )
     if not ok:
         raise SystemExit("chip_smoke: unstructured apply failed its checks")
 
     sumfact_fused.launch_count = 0  # the SUM_FACT_PALLAS path starts here
+    node_major_before = sum(v for (_, layout), v in rows.launch_count.items() if layout == "node_major")
     t0 = time.perf_counter()
     spal = _build_cylinder(lp, mesh, "SUM_FACT_PALLAS", torch.float32, "cuda")
     pkinds = [d[0] for _, d in spal._operators()[1]]
@@ -1200,12 +1212,17 @@ def phase_unstructured_main_path(lp) -> dict:
     perr = float((yp.double() - y64).abs().max() / y64.abs().max())
     pms = _cuda_ms(lambda: fp(x32))
     pbusy_ms, ptop = _profile_apply(fp, x32)
-    ok = pkinds == ["pallas"] + ["direct"] * 4 and bool(torch.isfinite(yp).all()) and perr < F32_APPLY_TOL
+    node_major = sum(v for (_, layout), v in rows.launch_count.items() if layout == "node_major") - node_major_before
+    ok = (
+        pkinds == ["pallas"] + ["direct"] * 4 and bool(torch.isfinite(yp).all()) and perr < F32_APPLY_TOL
+        and node_major > 0
+    )
     _say(
         "unstructured_apply_sum_fact_pallas", kinds=pkinds, setup_s=psetup_s,
         rel_err_vs_f64_auto_on_card=perr, tol=F32_APPLY_TOL, apply_ms=pms,
         auto_apply_ms=apply_ms, device_busy_ms=pbusy_ms, device_idle_share=1.0 - pbusy_ms / pms,
-        top_device_ms_per_apply=ptop, sumfact_launches=sumfact_fused.launch_count, ok=ok,
+        top_device_ms_per_apply=ptop, sumfact_launches=sumfact_fused.launch_count,
+        node_major_row_launches=node_major, ok=ok,
     )
     if not ok:
         raise SystemExit("chip_smoke: SUM_FACT_PALLAS apply failed its checks")
@@ -2072,6 +2089,94 @@ def phase_kernels_qp(lp, device: str = "cuda", shrink: int = 1) -> dict:
         del d32
         if cuda:
             torch.cuda.empty_cache()
+    return records
+
+
+def phase_kernels_rows(lp, device: str = "cuda", small: bool = False) -> dict:
+    """The node-row gather and scatter-add (``csrc/row_gather.cu``) against
+    their plain versions on the p = 4 cylinder's node-row contribution
+    (E = 17,456 elements, n = 125 nodes, c = 4, its own int32 row indices),
+    in both layouts (channel-major, the AUTO path's; node-major, the
+    SUM_FACT_PALLAS path's), f64 and f32: the gather bit for bit, the scatter
+    to rounding (its atomics add in another order than ``index_add_``).  Per
+    layout the kernel's ms, the plain version's (torch indexing into the same
+    contiguous block; the transpose copy and ``index_add_``), a torch copy of
+    as many bytes, the byte bound (indices, the rows once, the block; the
+    scatter's accumulator read and written) and the launch shape.  Returns
+    {"gather": record, "scatter": record}, each timed in the channel-major
+    layout.  ``small``: the small cylinder mesh (a rehearsal on the CPU)."""
+    import torch
+
+    from l3ster_tpu_torch.ops.rows import gather_rows, gather_rows_plain, scatter_rows_add, scatter_rows_add_plain
+
+    system = _build_cylinder(lp, _cylinder_mesh(lp, 2 if small else CYL_ORDER, small), "AUTO", torch.float32, device)
+    (c_vol, d_vol), = [(c, d) for c, d in system._operators()[1] if d[-1][0] == "rows"]
+    _, idx, n_rows = d_vol[-1]
+    E, n = idx.shape
+    c = c_vol.elem_dofs.shape[2]
+    del system, d_vol
+    rng = np.random.default_rng(50)
+    records = {}
+    for op, name in (("gather", "rows_gather"), ("scatter", "rows_scatter_add")):
+        per_layout = {}
+        for cm in (True, False):
+            shape = (E, c, n) if cm else (E, n, c)
+            if op == "gather":
+                kern = lambda x, cm=cm: gather_rows(x, idx, cm)  # noqa: E731
+                plain = lambda x, cm=cm: gather_rows_plain(x, idx, cm).contiguous()  # noqa: E731
+                args = [torch.as_tensor(rng.normal(size=(n_rows, c)), device=device)]
+                args.append(args[0].float())
+                differ = [int((kern(a) != plain(a)).sum()) for a in args]
+                ok, abs32 = differ == [0, 0], 0.0
+                checks = dict(f64_values_differing=differ[0], f32_values_differing=differ[1], bit_exact=ok)
+                nbytes = E * n * 4 + n_rows * c * 4 + E * n * c * 4
+                timed = (lambda a=args[1]: kern(a), lambda a=args[1]: plain(a))
+            else:
+                kern = lambda flat, y, cm=cm: scatter_rows_add(flat, idx, y, cm)  # noqa: E731
+                plain = lambda flat, y, cm=cm: scatter_rows_add_plain(flat, idx, y, cm)  # noqa: E731
+                args = [torch.as_tensor(rng.normal(size=shape), device=device)]
+                args.append(args[0].float())
+                ref, got64, got32, plain32 = (
+                    torch.zeros((n_rows, c), dtype=a.dtype, device=device) for a in (args[0], args[0], args[1], args[1])
+                )
+                plain(ref, args[0])
+                kern(got64, args[0])
+                kern(got32, args[1])
+                plain(plain32, args[1])
+                err64 = _errs(got64, ref)[1]
+                abs32, err32 = _errs(got32, ref)
+                ok = err64 < F64_KERNEL_TOL and err32 < F32_KERNEL_TOL
+                checks = dict(f64_rel_err=err64, f64_tol=F64_KERNEL_TOL, f32_rel_err=err32, f32_abs_err=abs32,
+                              f32_tol=F32_KERNEL_TOL, plain_f32_rel_err=_errs(plain32, ref)[1])
+                nbytes = E * n * c * 4 + E * n * 4 + 2 * n_rows * c * 4
+                # the timed calls keep adding into one accumulator
+                timed = (lambda a=args[1], f=got32: kern(f, a), lambda a=args[1], f=got32: plain(f, a))
+                del ref, got64, plain32
+            _sync(device)
+            ms, plain_ms = (_cuda_ms(f, queued=True) for f in timed)
+            bound_ms, bound_by = _bound(nbytes, 0)
+            src = torch.empty(nbytes // 8, device=device)  # read and written: nbytes in all
+            dst = torch.empty_like(src)
+            copy_ms = _cuda_ms(lambda: dst.copy_(src), queued=True)
+            del src, dst, args, timed
+            layout = "channel_major" if cm else "node_major"
+            _say(
+                "kernel_vs_plain", kernel=name, layout=layout, cell="cylinder", shape=list(shape),
+                n_rows=n_rows, **checks, ms=ms, plain_ms=plain_ms, copy_same_bytes_ms=copy_ms, bytes=nbytes,
+                bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+                launch_shape=dict(blocks=-(-E * n // 256), threads=256), ok=ok,
+            )
+            if not ok:
+                raise SystemExit(f"chip_smoke: the row {op} kernel disagrees with its plain version ({layout})")
+            per_layout[layout] = (ms, plain_ms, bound_ms, bound_by, abs32)
+        ms, plain_ms, bound_ms, bound_by, abs32 = per_layout["channel_major"]
+        records[op] = dict(
+            name=name, route="cuda", source="l3ster_tpu_torch/csrc/row_gather.cu", replaces=None,
+            launches=0, max_abs_err=abs32, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, node_major_ms=per_layout["node_major"][0],
+        )
+    if device != "cpu":
+        torch.cuda.empty_cache()
     return records
 
 
@@ -3401,7 +3506,7 @@ def main() -> int:
     import torch
 
     import l3ster_tpu_torch as lp
-    from l3ster_tpu_torch.ops import qp, sumfact_fused, zsweep
+    from l3ster_tpu_torch.ops import qp, rows, sumfact_fused, zsweep
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 matmuls (the default, stated)
     torch.backends.cudnn.allow_tf32 = False
@@ -3414,6 +3519,7 @@ def main() -> int:
     stage_record = phase_kernels_stages(lp)
     sumfact_record = phase_kernels_unstructured(lp)
     qp_records = phase_kernels_qp(lp)
+    row_records = phase_kernels_rows(lp)
     torch.cuda.empty_cache()
     state = phase_main_path(lp)
     jacobi_iters = phase_solve(lp, state)
@@ -3447,6 +3553,8 @@ def main() -> int:
     cylinder_iters = phase_unstructured_solve(lp, state)
     qp_records["cylinder"]["launches"] = qp.launch_count  # unstructured main path: phases 8 and 9
     sumfact_record["launches"] = sumfact_fused.launch_count
+    for (op, _), v in rows.launch_count.items():  # phases 8 and 9, both layouts
+        row_records[op]["launches"] += v
     dist_launches, dist_state = phase_distributed(lp, state, cylinder_iters)
     qp_records["cylinder"]["launches"] += dist_launches  # and the distributed cylinder
     qp_records["cylinder"]["launches"] += phase_multi_device_distributed(lp, state, dist_state)  # placed
@@ -3467,6 +3575,7 @@ def main() -> int:
     del karman_state
     kernels = [record, var_record, v1_record, stage_record, qp_records["cylinder"], sumfact_record]
     kernels += [qp_records[k] for k in ("lattice_2d", "lattice_bench", "periodic")]
+    kernels += [row_records["gather"], row_records["scatter"]]
     for rec in kernels:
         if rec["launches"] <= 0:
             raise SystemExit(f"chip_smoke: the main path never launched the {rec['name']} kernel")

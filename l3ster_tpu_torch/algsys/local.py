@@ -387,19 +387,22 @@ def _qp_algebra_nz(nz_idx, A_nz, n_eq: int, Ji_t, w_t, vals_l, rd, dim: int, c: 
 
 def local_apply_dense_const(
     A_const: np.ndarray, Ji_t: torch.Tensor, w_t: torch.Tensor, Ball: torch.Tensor, dim: int,
-    x_loc: torch.Tensor,
+    x_loc: torch.Tensor, channel_major: bool = False,
 ) -> torch.Tensor:
     """Dense-basis local apply for constant-coefficient kernels, any element.
 
     Two basis matmuls (``ops/dense_eval.py``) around the per-QP kernel
     (``ops/qp.py``), which reads and writes the matmuls' (E, c, dim+1, Q)
-    layout.  x_loc (E, n_nodes, c) -> y (E, n_nodes, c).
+    layout.  x_loc (E, n_nodes, c) -> y (E, n_nodes, c); with
+    ``channel_major``, (E, c, n_nodes) -> (E, c, n_nodes), the matmuls' own
+    operand and result.
     """
-    from ..ops.dense_eval import dense_interpolate_channels, dense_transpose_channels
+    from ..ops.dense_eval import dense_interpolate, dense_transpose
     from ..ops.qp import qp_algebra_const
 
-    G = dense_interpolate_channels(x_loc, Ball, dim)
-    return dense_transpose_channels(qp_algebra_const(A_const, G, Ji_t, w_t), Ball)
+    G = dense_interpolate(x_loc if channel_major else x_loc.transpose(1, 2), Ball, dim)
+    Y = dense_transpose(qp_algebra_const(A_const, G, Ji_t, w_t), Ball)
+    return Y if channel_major else Y.transpose(1, 2)
 
 
 def local_apply_sumfact_const(
@@ -451,17 +454,19 @@ def _qp_algebra_packed(A_t: torch.Tensor, Ji_t: torch.Tensor, w_t: torch.Tensor,
 
 def local_apply_dense_packed(
     A_t: torch.Tensor, Ji_t: torch.Tensor, w_t: torch.Tensor, Ball: torch.Tensor, dim: int,
-    x_loc: torch.Tensor,
+    x_loc: torch.Tensor, channel_major: bool = False,
 ) -> torch.Tensor:
     """Dense-basis local apply with A stored per QP (any element): the two
     basis matmuls of :func:`local_apply_dense_const` around
-    :func:`_qp_algebra_packed`.  x_loc (E, n_nodes, c) -> y (E, n_nodes, c)."""
-    from ..ops.dense_eval import dense_interpolate_channels, dense_transpose_channels
+    :func:`_qp_algebra_packed`.  x_loc (E, n_nodes, c) -> y (E, n_nodes, c),
+    or both (E, c, n_nodes) with ``channel_major``."""
+    from ..ops.dense_eval import dense_interpolate, dense_transpose
 
-    G = dense_interpolate_channels(x_loc, Ball, dim)  # (E, c, d1, Q)
+    G = dense_interpolate(x_loc if channel_major else x_loc.transpose(1, 2), Ball, dim)  # (E, c, d1, Q)
     E, c, d1, Q = G.shape
     T = _qp_algebra_packed(A_t, Ji_t, w_t, G.permute(2, 1, 0, 3).reshape(d1, c, E * Q))
-    return dense_transpose_channels(T.reshape(d1, c, E, Q).permute(2, 1, 0, 3), Ball)
+    Y = dense_transpose(T.reshape(d1, c, E, Q).permute(2, 1, 0, 3), Ball)
+    return Y if channel_major else Y.transpose(1, 2)
 
 
 def local_apply_sumfact_packed(

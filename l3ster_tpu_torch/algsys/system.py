@@ -89,6 +89,9 @@ from .local import (
 __all__ = ["AssembledSystem", "MatrixFreeSystem", "make_algebraic_system"]
 
 _LATTICE_KINDS = ("lattice_sf_const", "lattice_sf_const_diag", "lattice_sf_var")
+# kinds whose local apply takes and gives channel-major element blocks (E, n_unk,
+# n_nodes), the dense basis matmuls' operand and result (``ops/dense_eval.py``)
+_CHANNEL_MAJOR_KINDS = ("dense_const", "dense")
 _MODES = ("both", "rhs", "operator")
 
 
@@ -520,18 +523,20 @@ class _SystemBase:
             parts.append(pack_sumfact_operator(A, geom, c.tables.dim))
         return tuple(torch.cat([p[i] for p in parts], dim=-1).contiguous() for i in range(3))
 
-    def _local_apply(self, c: _Contribution, d, x_loc: torch.Tensor) -> torch.Tensor:
-        """y_loc (E, n_sel, n_unk) of one gather-family contribution."""
+    def _local_apply(self, c: _Contribution, d, x_loc: torch.Tensor, channel_major: bool = False) -> torch.Tensor:
+        """y_loc (E, n_sel, n_unk) of one gather-family contribution from x_loc
+        of the same shape; with ``channel_major`` (the kinds of
+        ``_CHANNEL_MAJOR_KINDS`` only), both (E, n_unk, n_sel)."""
         dim, order = c.tables.dim, c.tables.order
         q_order = c.options.quadrature_order(order)
         if d[0] == "dense_const":
             from .local import local_apply_dense_const
 
-            return local_apply_dense_const(d[1], d[2], d[3], d[4], dim, x_loc)
+            return local_apply_dense_const(d[1], d[2], d[3], d[4], dim, x_loc, channel_major)
         if d[0] == "dense":
             from .local import local_apply_dense_packed
 
-            return local_apply_dense_packed(d[1], d[2], d[3], d[4], dim, x_loc)
+            return local_apply_dense_packed(d[1], d[2], d[3], d[4], dim, x_loc, channel_major)
         if d[0] == "sumfact":
             from .local import local_apply_sumfact_packed
 
@@ -1039,9 +1044,9 @@ class MatrixFreeSystem(_SystemBase):
         - ``("lattice", plan, n_rows)``: a volume bucket whose node rows form
           a full lattice (a kind other than the lattice ones): element
           windows sliced from the (n_rows, n_unk) view (``lattice_gather``);
-        - ``("rows", row_idx (E, n_nodes), n_rows)``: node rows of an
+        - ``("rows", row_idx (E, n_nodes) int32, n_rows)``: node rows of an
           (n_rows, n_unk) view, when every node's kernel dofs are
-          consecutive and row-aligned;
+          consecutive and row-aligned (``ops/rows.py``);
         - ``("dofs", idx (E, n_sel*n_unk))``: scalar dof indices, ``ns``
           restricting to a subset of local nodes."""
         if face is not None:
@@ -1051,7 +1056,7 @@ class MatrixFreeSystem(_SystemBase):
             plan = self._lattice_plan(c)
             if plan is not None:
                 return ("lattice", plan, rows[1])
-            return ("rows", torch.as_tensor(rows[0], device=self.device), rows[1])
+            return ("rows", torch.as_tensor(rows[0], dtype=torch.int32, device=self.device), rows[1])
         dofs = c.elem_dofs if ns is None else c.elem_dofs[:, ns]
         return ("dofs", torch.as_tensor(dofs.reshape(dofs.shape[0], -1), device=self.device))
 
@@ -1098,6 +1103,7 @@ class MatrixFreeSystem(_SystemBase):
         per column."""
         from ..ops.lattice import face_gather_tensor, face_scatter_tensor_add, lattice_gather, lattice_scatter_add
         from ..ops.lattice_sumfact import face_apply_banded, local_apply_lattice
+        from ..ops.rows import gather_rows, scatter_rows_add
 
         tacc: dict = {}
         flat: dict = {}
@@ -1181,10 +1187,11 @@ class MatrixFreeSystem(_SystemBase):
                     _, plan, n_rows = how
                     y_loc = self._local_apply(c, d, lattice_gather(x[:, r].reshape(n_rows, n_unk), plan, order))
                     flat[r] += lattice_scatter_add(y_loc, plan, order).reshape(-1)
-                elif how[0] == "rows":  # node-row gather / scatter
+                elif how[0] == "rows":  # node-row gather / scatter, in the local apply's layout
                     _, idx, n_rows = how
-                    y_loc = self._local_apply(c, d, x[:, r].reshape(n_rows, n_unk)[idx])
-                    flat[r].view(n_rows, n_unk).index_add_(0, idx.reshape(-1), y_loc.reshape(-1, n_unk))
+                    cm = d[0] in _CHANNEL_MAJOR_KINDS
+                    x_loc = gather_rows(x[:, r].view(n_rows, n_unk), idx, cm)
+                    scatter_rows_add(flat[r].view(n_rows, n_unk), idx, self._local_apply(c, d, x_loc, cm), cm)
                 else:  # scalar dof indices (restricted node subsets)
                     idx = how[1]
                     y_loc = self._local_apply(c, d, x[idx, r].reshape(idx.shape[0], -1, n_unk))

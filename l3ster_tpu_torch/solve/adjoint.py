@@ -30,10 +30,12 @@ leaves, so a distributed system's vectors placed on several devices
 (``parallel/sharded.py:ShardedStack``, a pytree of its parts) solve and
 differentiate like one tensor.
 
-The hand-written CUDA kernels have no backward.  When a const that requires
-grad reaches an operator kind that launches one, ``linear_solve`` raises
-before it solves (``ops/_cuda.py:no_autograd``), rather than return a
-gradient that silently leaves out the kernel's part.
+The hand-written CUDA kernels have no backward, but for the node-row gather
+and scatter of the gather apply, each the other's transpose
+(``ops/rows.py``).  When a const that requires grad reaches an operator kind
+that launches one without a backward, ``linear_solve`` raises before it
+solves (``ops/_cuda.py:no_autograd``), rather than return a gradient that
+silently leaves out the kernel's part.
 """
 
 from __future__ import annotations
@@ -167,7 +169,7 @@ def linear_solve(
     the transpose of ``fn`` from ``torch.autograd``.
 
     Raises ``NotImplementedError`` when a const that requires grad reaches a
-    hand-written CUDA kernel (they have no backward, ROADMAP.md).
+    hand-written CUDA kernel without a backward (ROADMAP.md).
     """
     squeeze = b.dim() == 1
     b2 = b[:, None] if squeeze else b
